@@ -1,0 +1,26 @@
+"""Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``."""
+from __future__ import annotations
+
+from repro_torch.configs import qwen3_0p6b
+from repro_torch.configs.base import ModelConfig, ServeConfig
+
+__all__ = ["ARCHS", "ModelConfig", "ServeConfig", "get_config",
+           "get_smoke_config"]
+
+_MODULES = {
+    "qwen3-0.6b": qwen3_0p6b,
+}
+
+ARCHS: tuple[str, ...] = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {', '.join(ARCHS)}")
+    return _MODULES[arch].CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {', '.join(ARCHS)}")
+    return _MODULES[arch].SMOKE

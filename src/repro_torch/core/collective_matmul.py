@@ -1,0 +1,225 @@
+"""Systolic (ring) collective matmuls on the emulated PE ring.
+
+The streamed operand rides the ring (``queues.stream``) while the resident
+operand, a weight slice per PE, stays put; each PE accumulates its output
+tile in place (output-stationary), as in the reference
+``repro/core/collective_matmul.py``. PE-local tensors carry a leading PE
+dimension ``[n, ...]``; the ``systolic_*`` wrappers take and return the
+global tensors and do the split that ``shard_map`` does in the reference.
+
+Link modes: sw / xqueue / qlr (core/queues.py), plus ``baseline``: one
+all-gather and one local product (the pure shared-memory model).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import queues
+from repro_torch.core import topology as topo_lib
+from repro_torch.core.topology import Topology, ring
+from repro_torch.kernels.systolic_matmul.ops import tile_matmul
+
+
+@functools.lru_cache(maxsize=64)
+def _source_table(topo: Topology, device) -> torch.Tensor:
+    """[n, n] long: entry (d, t) = origin shard PE d holds at consume t.
+    Cached per device: a host-to-device copy would stall the stream."""
+    if not topo_lib.is_cycle(topo):
+        raise ValueError(f"{topo.name}: topology must be a single full cycle")
+    return torch.as_tensor(topo_lib.source_table(topo), dtype=torch.long,
+                           device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _dest_table(topo: Topology, device) -> torch.Tensor:
+    """[n, n] long ``topology.dest_table``, cached per device."""
+    return torch.as_tensor(topo_lib.dest_table(topo), dtype=torch.long,
+                           device=device)
+
+
+def _chunks(x, n: int):
+    """[n_pe, ..., S, f] -> [n_pe, L, n, S/n, f] (L = prod of ...)."""
+    return x.reshape(x.shape[0], -1, n, x.shape[-2] // n, x.shape[-1])
+
+
+def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo: Topology,
+                   mode: str = "qlr"):
+    """All-gather(x) @ w_i for each w_i, streamed around a ring.
+
+    x_local: [n, ..., s_local, d] — each PE's shard of the streamed operand.
+    ws:      list of [n, d, f_local] resident weights (each PE's slice).
+    Returns: list of [n, ..., n*s_local, f_local] full outputs per PE.
+
+    At hop t PE d holds the shard of origin ``source_table[d, t]`` and
+    writes its partial products at that offset.
+    """
+    n = topo.size
+    s_local = x_local.shape[-2]
+    queues.check_mode(mode, baseline=True)
+    if mode == "baseline":
+        xs = torch.cat(x_local.unbind(0), dim=-2)          # all-gather
+        xs = xs.unsqueeze(0).expand(n, *xs.shape)
+        return [tile_matmul(xs, w) for w in ws]
+
+    src_table = _source_table(topo, x_local.device)
+    pe = torch.arange(n, device=x_local.device)
+    lead = x_local.shape[1:-2]
+    outs = [
+        torch.zeros((n, *lead, n * s_local, w.shape[-1]),
+                    dtype=torch.promote_types(x_local.dtype, w.dtype),
+                    device=x_local.device)
+        for w in ws
+    ]
+
+    def consume(state, buf, t):
+        src = src_table[:, t]
+        for o, w in zip(state, ws):
+            part = tile_matmul(buf, w)
+            # o is updated in place: each PE writes its chunk at its origin
+            o.view(n, -1, n, s_local, o.shape[-1])[pe, :, src] = \
+                part.reshape(n, -1, s_local, w.shape[-1]).to(o.dtype)
+        return state
+
+    state, _ = queues.stream(topo, x_local, n, consume, outs, mode)
+    return state
+
+
+def ring_matmul_rs(x, w, topo: Topology, mode: str = "qlr"):
+    """(x @ w) reduce-scattered over the sequence dim, as a ring of
+    travelling accumulators.
+
+    x: [n, ..., S, f_local], w: [n, f_local, d]. Returns [n, ..., S/n, d]:
+    PE d's chunk ``d``, fully reduced over the ring. PE d computes, at step
+    t, the chunk owned by the PE its accumulator finally lands on
+    (``dest_table[d, t]``). Each partial folds into the travelling
+    accumulator inside one tile-matmul call (the kernel's carry-in). The
+    accumulator starts in the activation type and is rounded to it after
+    every hop, as in the reference.
+    """
+    n = topo.size
+    s = x.shape[-2]
+    queues.check_mode(mode, baseline=True)
+    if s % n:
+        raise ValueError(f"sequence {s} does not divide the ring size {n}")
+    s_local = s // n
+    lead = x.shape[1:-2]
+    if mode == "baseline":
+        y = tile_matmul(x, w)
+        y_s = _chunks(y, n).sum(dim=0)                      # reduce ...
+        return y_s.permute(1, 0, 2, 3).reshape(n, *lead, s_local,
+                                              w.shape[-1])  # ... scatter
+
+    dst_table = _dest_table(topo, x.device)
+    pe = torch.arange(n, device=x.device)
+    hops = topo_lib.hop_topos(topo)
+    xc_all = _chunks(x, n)
+
+    def part(t, acc=None):
+        xc = xc_all[pe, :, dst_table[:, t]]                  # [n, L, s_l, f]
+        xc = xc.reshape(n, *lead, s_local, x.shape[-1])
+        return tile_matmul(xc, w, acc)
+
+    acc = part(0)
+    for t in range(1, n):
+        # every mode hops, then folds the next partial into what arrived;
+        # the reference's xqueue/sw barrier only pins this same order
+        moved = queues.hop(hops[t - 1], acc, mode)
+        acc = part(t, moved)
+    return acc
+
+
+def ffn_applicable(x, d_ff: int, n_pe: int) -> bool:
+    if not n_pe:
+        return False
+    _, s, _ = x.shape
+    return s % n_pe == 0 and d_ff % n_pe == 0
+
+
+def attn_applicable(x, num_heads: int, num_kv_heads: int, head_dim: int,
+                    n_pe: int) -> bool:
+    if not n_pe:
+        return False
+    _, s, _ = x.shape
+    return s % n_pe == 0 and num_heads % n_pe == 0 \
+        and num_kv_heads % n_pe == 0
+
+
+def _seq_shards(x, n: int):
+    """Global [B, S, ...] -> per-PE [n, B, S/n, ...]."""
+    b, s = x.shape[:2]
+    return x.reshape(b, n, s // n, *x.shape[2:]).transpose(0, 1)
+
+
+def _seq_unshard(y):
+    """Per-PE [n, B, s_l, ...] -> global [B, n*s_l, ...]."""
+    n, b, s_l = y.shape[:3]
+    return y.transpose(0, 1).reshape(b, n * s_l, *y.shape[3:])
+
+
+def systolic_qkv(x, wq, wk, wv, n_pe: int, mode: str = "qlr", *,
+                 topo=None):
+    """QKV projections as ONE systolic ring: the x stream feeds three
+    weight sinks (the paper's data reuse).
+
+    x: [B,S,D], sequence-sharded over the ring; w*: [D, H*, hd],
+    head-sharded. Returns the global q, k, v: [B, S, H*, hd].
+    """
+    topo = topo or ring("model", n_pe)
+    x_l = _seq_shards(x, n_pe)
+
+    def head_slices(w):
+        d, h, hd = w.shape
+        return w.reshape(d, n_pe, h // n_pe, hd).permute(1, 0, 2, 3) \
+            .reshape(n_pe, d, (h // n_pe) * hd)
+
+    ws = [head_slices(w) for w in (wq, wk, wv)]
+    outs = ring_ag_matmul(x_l, ws, topo, mode)
+
+    def unflat(y, w):                       # [n, B, S, H_l*hd] -> global
+        n, b, s, _ = y.shape
+        h, hd = w.shape[1], w.shape[2]
+        return y.reshape(n, b, s, h // n, hd).permute(1, 2, 0, 3, 4) \
+            .reshape(b, s, h, hd)
+
+    return tuple(unflat(y, w) for y, w in zip(outs, (wq, wk, wv)))
+
+
+def systolic_out_proj(attn_out, wo, n_pe: int, mode: str = "qlr", *,
+                      topo=None):
+    """Attention output projection with a reduce-scatter ring: partial sums
+    over the head shards travel to their sequence-shard owners.
+
+    attn_out: [B,S,H,hd] head-sharded; wo: [H, hd, D]. Returns [B,S,D].
+    """
+    topo = topo or ring("model", n_pe)
+    b, s, h, hd = attn_out.shape
+    o_l = attn_out.reshape(b, s, n_pe, (h // n_pe) * hd).permute(2, 0, 1, 3)
+    w_l = wo.reshape(n_pe, (h // n_pe) * hd, wo.shape[2])
+    y = ring_matmul_rs(o_l, w_l, topo, mode)
+    return _seq_unshard(y)
+
+
+def systolic_ffn(x, w_gate, w_up, w_down, n_pe: int, mode: str = "qlr", *,
+                 topo=None):
+    """SwiGLU FFN with systolic sequence-parallel rings:
+
+      x (seq-sharded) --AG-ring--> [gate|up] (one stream, two weight sinks)
+      --silu*-- h --RS-ring--> y (seq-sharded)
+
+    x: [B,S,D]; w_gate/w_up: [D,F] and w_down: [F,D], split over F.
+    Returns [B,S,D].
+    """
+    topo = topo or ring("model", n_pe)
+    d, f = w_gate.shape
+    x_l = _seq_shards(x, n_pe)
+    wg = w_gate.reshape(d, n_pe, f // n_pe).transpose(0, 1)
+    wu = w_up.reshape(d, n_pe, f // n_pe).transpose(0, 1)
+    wd = w_down.reshape(n_pe, f // n_pe, d)
+    gate, up = ring_ag_matmul(x_l, [wg, wu], topo, mode)
+    h = F.silu(gate) * up                                  # [n, B, S, f_l]
+    y = ring_matmul_rs(h, wd, topo, mode)
+    return _seq_unshard(y)

@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, each beside its plain twin.
+
+``ALL`` lists every kernel; ``build_all(ALL)`` compiles them in parallel.
+"""
+from repro_torch.kernels._build import build_all
+from repro_torch.kernels.flash_attention.kernel import FLASH_CARRY
+from repro_torch.kernels.systolic_matmul.kernel import TILE_MATMUL
+
+ALL = (FLASH_CARRY, TILE_MATMUL)
+
+__all__ = ["ALL", "FLASH_CARRY", "TILE_MATMUL", "build_all"]

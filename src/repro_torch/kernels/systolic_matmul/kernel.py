@@ -1,0 +1,70 @@
+"""Batched output-stationary tile GEMM: the hand-written CUDA kernel
+(``csrc/tile_matmul.cu``) and its plain PyTorch twin.
+
+Both compute ``O[p] = (C[p] +) A[p] @ B[p]`` for ``A [P,M,K]``,
+``B [P,K,N]``, ``C [P,M,N]`` with an fp32 accumulator seeded from C and one
+rounding to ``out_dtype`` at the end. ``ops.tile_matmul`` takes the twin
+for tensors on the CPU and launches the kernel (or raises) otherwise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import (
+    Kernel,
+    require_cuda_tensors,
+    stream_handle,
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+TILE_MATMUL = Kernel("tile_matmul", {
+    # a, b, c, out, P, M, N, K, in_dtype, c_dtype, out_dtype, stream
+    "tile_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+})
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def matmul_plain(a, b, c=None, out_dtype=None):
+    """The kernel's arithmetic in plain PyTorch: fp32 accumulation seeded
+    from ``c``, rounded once to ``out_dtype`` (default ``a.dtype``)."""
+    out_dtype = out_dtype or a.dtype
+    y = torch.matmul(a.float(), b.float())
+    if c is not None:
+        y = c.float() + y
+    return y.to(out_dtype)
+
+
+def matmul_cuda(a, b, c=None, out_dtype=None):
+    """One launch of the CUDA tile GEMM over all P batches."""
+    out_dtype = out_dtype or a.dtype
+    require_cuda_tensors("tile_matmul", a, b, c)
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2] != b.shape[1]:
+        raise ValueError(f"tile_matmul: bad shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in DTYPE_CODES \
+            or out_dtype not in DTYPE_CODES:
+        raise TypeError(f"tile_matmul: unsupported dtypes {a.dtype}, "
+                        f"{b.dtype} -> {out_dtype}")
+    p, m, k = a.shape
+    n = b.shape[2]
+    if c is not None:
+        if tuple(c.shape) != (p, m, n) or c.dtype not in DTYPE_CODES:
+            raise ValueError(f"tile_matmul: carry-in {tuple(c.shape)} "
+                             f"{c.dtype} does not match {(p, m, n)}")
+        c = c.contiguous()
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((p, m, n), dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    err = TILE_MATMUL.lib().tile_matmul(
+        a.data_ptr(), b.data_ptr(), c.data_ptr() if c is not None else None,
+        out.data_ptr(),
+        p, m, n, k, DTYPE_CODES[a.dtype],
+        DTYPE_CODES[c.dtype] if c is not None else -1,
+        DTYPE_CODES[out_dtype], stream_handle(a.device))
+    TILE_MATMUL.check(err)
+    TILE_MATMUL.launches += 1
+    return out

@@ -1,0 +1,271 @@
+"""GQA attention (RoPE, qk-norm, sliding window, bias) of the dense slice.
+
+Mirrors the GQA half of ``repro/models/attention.py``. Where the reference
+asks its mesh context whether a 'model' ring is present, the port takes
+``n_pe``, the size of the emulated ring (0: no ring). When
+``cfg.systolic_mode`` is a link mode and the shapes admit it, the QKV
+projections run as one systolic ring (``core/collective_matmul``), prefill
+attention as ring attention and decode attention as ring decode
+(``core/ring_attention``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import topology as topo_lib
+from repro_torch.kernels.flash_attention.kernel import flash_carry_plain
+from repro_torch.kernels.flash_attention.ops import zero_state
+from repro_torch.models.common import (
+    adtype,
+    apply_rope,
+    param,
+    pdtype,
+    rms_norm_simple,
+)
+
+_NEG_INF = -1e30
+# Sequences at or above this length use the blocked (streaming) path.
+BLOCKED_ATTN_THRESHOLD = 2048
+KV_BLOCK = 512
+
+
+def init_gqa(gen, cfg: ModelConfig):
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    dt = pdtype(cfg)
+    p = {
+        "wq": param(gen, (d, cfg.num_heads, hd), dt),
+        "wk": param(gen, (d, cfg.num_kv_heads, hd), dt),
+        "wv": param(gen, (d, cfg.num_kv_heads, hd), dt),
+        "wo": param(gen, (cfg.num_heads, hd, d), dt),
+    }
+    if cfg.use_attn_bias:
+        p["bq"] = param(gen, (cfg.num_heads, hd), dt, "zeros")
+        p["bk"] = param(gen, (cfg.num_kv_heads, hd), dt, "zeros")
+        p["bv"] = param(gen, (cfg.num_kv_heads, hd), dt, "zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = param(gen, (hd,), dt, "ones")
+        p["k_norm"] = param(gen, (hd,), dt, "ones")
+    return p
+
+
+def _expand_kv(k, num_heads: int):
+    """[B,T,Kv,hd] -> [B,T,H,hd] by repeating KV heads (GQA)."""
+    kvh = k.shape[2]
+    if kvh == num_heads:
+        return k
+    return k.repeat_interleave(num_heads // kvh, dim=2)
+
+
+def ring_size(cfg: ModelConfig, n_pe: int) -> int:
+    """The ring the systolic paths may use: 0 in baseline mode or without
+    a ring (the reference's ``_systolic_attn_ctx``)."""
+    return n_pe if cfg.systolic_mode != "baseline" else 0
+
+
+def _sched(cfg: ModelConfig, n_pe: int, *, cycle_only: bool = False):
+    """cfg.systolic_topology -> schedule (None keeps the +1 ring)."""
+    if cfg.systolic_topology in ("", "ring"):
+        return None
+    return topo_lib.resolve_safe(cfg.systolic_topology, "model", n_pe,
+                                 cycle_only=cycle_only)
+
+
+def _qkv(params, x, cfg: ModelConfig, positions, n_pe: int = 0):
+    dt = adtype(cfg)
+    x = x.to(dt)
+    n = ring_size(cfg, n_pe)
+    from repro_torch.core import collective_matmul as cm
+    if n and x.dim() == 3 and cm.attn_applicable(
+            x, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, n):
+        # one systolic x-stream feeds the three projection sinks
+        q, k, v = cm.systolic_qkv(
+            x, params["wq"].to(dt), params["wk"].to(dt), params["wv"].to(dt),
+            n, cfg.systolic_mode, topo=_sched(cfg, n))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+        k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+        v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    if cfg.use_attn_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm_simple(q, params["q_norm"])
+        k = rms_norm_simple(k, params["k_norm"])
+    if cfg.use_rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def plain_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Materialized-scores attention over aligned positions.
+    q: [B,Sq,H,hd], k/v: [B,Skv,Kv,hd]. Returns fp32 [B,Sq,H,hd]."""
+    b, sq, h, hd = q.shape
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+    dq = torch.arange(sq, device=q.device)[:, None]
+    dk = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = dk <= dq if causal else torch.ones_like(dk <= dq)
+    if window:
+        mask = mask & (dq - dk < window)
+    scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthk->bshk", probs, v.float())
+
+
+def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      kv_block: int = KV_BLOCK):
+    """Online-softmax attention streaming KV blocks (flash-style): the
+    per-block merge of the ring schedule, in plain torch on every device
+    (the dense path launches no kernel)."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    pad = (-skv) % kv_block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    zero = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    state = zero_state(b, h, sq, hd, q.device)
+    for start in range(0, k.shape[1], kv_block):
+        state = flash_carry_plain(
+            q, k[:, start:start + kv_block], v[:, start:start + kv_block],
+            *state, zero, zero + start, zero + skv, causal=causal,
+            window=window)
+    _, l, acc = state
+    out = acc / torch.clamp(l, min=1e-30)[..., None]          # [B,H,Sq,hd]
+    return out.transpose(1, 2)
+
+
+def gqa_forward(params, x, cfg: ModelConfig, positions=None,
+                return_kv: bool = False, n_pe: int = 0):
+    """Full-sequence causal attention (prefill). x: [B,S,D]."""
+    b, s, _ = x.shape
+    dt = adtype(cfg)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg, positions, n_pe)
+    n = ring_size(cfg, n_pe)
+    out = None
+    from repro_torch.core import ring_attention as ra
+    if n and ra.ring_attn_applicable(q, k, n):
+        # q shards stay resident, K/V blocks ride the ring
+        out = ra.systolic_ring_attention(
+            q, k, v, n, cfg.systolic_mode, causal=True,
+            window=cfg.sliding_window, topo=_sched(cfg, n))
+        used_ring = True
+    else:
+        used_ring = False
+        if s >= BLOCKED_ATTN_THRESHOLD:
+            out = blocked_attention(q, k, v, causal=True,
+                                    window=cfg.sliding_window)
+        else:
+            out = plain_attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window)
+    out = out.to(dt)
+    # after ring attention the output is already sequence-sharded and the
+    # out-projection is local to each shard; otherwise a reduce-scatter
+    # ring carries head-shard partials to their sequence owners
+    if (not used_ring and n > 1 and cfg.num_heads % n == 0 and s % n == 0):
+        from repro_torch.core import collective_matmul as cm
+        y = cm.systolic_out_proj(out, params["wo"].to(dt), n,
+                                 cfg.systolic_mode, topo=_sched(cfg, n))
+    else:
+        y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# ----------------------------- decode cache -------------------------------
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
+    """Zeroed cache; sliding window uses a ring buffer."""
+    hd = cfg.resolved_head_dim
+    s_cache = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+        else seq_len
+    shape = (batch, s_cache, cfg.num_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=adtype(cfg), device=device),
+        "v": torch.zeros(shape, dtype=adtype(cfg), device=device),
+        # per-row positions: rows decode at independent offsets
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def gqa_decode(params, x, cache, cfg: ModelConfig, active=None,
+               n_pe: int = 0):
+    """One-token decode. x: [B,1,D]; per-row positions; rows with
+    active=False neither write the cache nor advance.
+
+    The cache is updated in place (the reference returns a new one): the
+    k/v rows are written at ``min(pos, s_cache - 1)`` (a full cache
+    overwrites its last slot) and ``pos`` advances. Where the reference
+    points an inactive row's write past the cache and drops it, the port
+    masks the write: the row rewrites its slot's old value. Returns
+    (y [B,1,D], cache)."""
+    pos = cache["pos"]                                       # [B]
+    b = x.shape[0]
+    q, k, v = _qkv(params, x, cfg, pos[:, None], n_pe)
+    k_all, v_all = cache["k"], cache["v"]
+    s_cache = k_all.shape[1]
+    if cfg.sliding_window:
+        write_idx = torch.remainder(pos, s_cache)
+    else:
+        write_idx = torch.clamp(pos, max=s_cache - 1)
+    rows = torch.arange(b, device=x.device)
+    write_idx = write_idx.long()
+    k_new, v_new = k[:, 0].to(k_all.dtype), v[:, 0].to(v_all.dtype)
+    if active is not None:
+        # an inactive row rewrites what its slot already holds (no
+        # data-dependent shapes, so no wait on the device)
+        keep = ~active[:, None, None]
+        k_new = torch.where(keep, k_all[rows, write_idx], k_new)
+        v_new = torch.where(keep, v_all[rows, write_idx], v_new)
+    k_all[rows, write_idx] = k_new
+    v_all[rows, write_idx] = v_new
+
+    out = None
+    n = ring_size(cfg, n_pe)
+    from repro_torch.core import ring_attention as ra
+    if n and not cfg.sliding_window and ra.ring_decode_applicable(q, k_all, n):
+        out = ra.systolic_ring_decode(
+            q, k_all, v_all, pos, n, cfg.systolic_mode,
+            topo=_sched(cfg, n, cycle_only=True))
+    if out is None:
+        slot = torch.arange(s_cache, device=x.device)
+        pos_c = pos[:, None].long()                          # [B,1]
+        if cfg.sliding_window:
+            # ring buffer: entry age = pos - stored position
+            wrap = torch.remainder(pos_c, s_cache)
+            stored_pos = torch.where(slot[None] <= wrap,
+                                     pos_c - (wrap - slot[None]),
+                                     pos_c - (wrap + s_cache - slot[None]))
+            valid = (stored_pos >= 0) & \
+                (pos_c - stored_pos < cfg.sliding_window)
+        else:
+            valid = slot[None] <= pos_c                      # [B, S]
+        h, hd = q.shape[2], q.shape[3]
+        ke = _expand_kv(k_all, h)
+        ve = _expand_kv(v_all, h)
+        scale = 1.0 / math.sqrt(hd)
+        scores = torch.einsum("bshk,bthk->bhst", q.float(),
+                              ke.float()) * scale            # [B,H,1,S]
+        scores = torch.where(valid[:, None, None, :], scores,
+                             torch.full_like(scores, _NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhst,bthk->bshk", probs, ve.float())
+    out = out.to(adtype(cfg))
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(adtype(cfg)))
+    if active is None:
+        pos += 1
+    else:
+        pos += active.to(pos.dtype)
+    return y, cache

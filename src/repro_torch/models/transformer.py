@@ -1,0 +1,175 @@
+"""Decoder-only transformer LM, dense family (qwen3 / olmo-style backbones).
+
+Mirrors the dense path of ``repro/models/transformer.py``. The reference
+scans stacked layer parameters; here ``params["layers"]`` is a list of
+per-layer dicts and the forward is a Python loop over it. The decode cache
+keeps the reference's stacked layout, ``cache["layers"][name]`` with a
+leading layer dimension, and each layer updates its slice in place.
+
+``n_pe`` is the size of the emulated systolic ring (0: none). With
+``cfg.systolic_mode`` set to a link mode the prefill FFN runs as the
+systolic SwiGLU (AG ring in, RS ring out) and the attention sublayer
+routes through the ring schedules (``models/attention``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (
+    adtype,
+    apply_mlp,
+    apply_norm,
+    embed,
+    init_embedding,
+    init_lm_head,
+    init_mlp,
+    init_norm,
+    lm_logits,
+    resolve_device,
+)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen, cfg: ModelConfig):
+    return {
+        "norm1": init_norm(gen, cfg),
+        "norm2": init_norm(gen, cfg),
+        "attn": attn.init_gqa(gen, cfg),
+        "mlp": init_mlp(gen, cfg),
+    }
+
+
+def _maybe_systolic_mlp(lp_mlp, h, cfg: ModelConfig, n_pe: int):
+    """Route the FFN through the paper's ring schedules when enabled and
+    the shapes divide; otherwise the plain SwiGLU."""
+    n = attn.ring_size(cfg, n_pe)
+    if n and cfg.mlp_kind == "swiglu":
+        from repro_torch.core import collective_matmul as cm
+        if cm.ffn_applicable(h, lp_mlp["w_gate"].shape[-1], n):
+            dt = adtype(cfg)
+            return cm.systolic_ffn(
+                h.to(dt), lp_mlp["w_gate"].to(dt), lp_mlp["w_up"].to(dt),
+                lp_mlp["w_down"].to(dt), n, cfg.systolic_mode)
+    return apply_mlp(lp_mlp, h, cfg)
+
+
+def block_prefill(lp, x, cfg: ModelConfig, n_pe: int = 0):
+    """One block over a full sequence; also returns the post-rope K/V of
+    the attention sublayer, for seeding a decode cache."""
+    h = apply_norm(lp["norm1"], x, cfg)
+    a, (k, v) = attn.gqa_forward(lp["attn"], h, cfg, return_kv=True,
+                                 n_pe=n_pe)
+    x = x + a
+    h = apply_norm(lp["norm2"], x, cfg)
+    return x + _maybe_systolic_mlp(lp["mlp"], h, cfg, n_pe), (k, v)
+
+
+def block_decode(lp, x, cache, cfg: ModelConfig, active=None, n_pe: int = 0):
+    h = apply_norm(lp["norm1"], x, cfg)
+    a, cache = attn.gqa_decode(lp["attn"], h, cache, cfg, active=active,
+                               n_pe=n_pe)
+    x = x + a
+    h = apply_norm(lp["norm2"], x, cfg)
+    return x + apply_mlp(lp["mlp"], h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+
+class TransformerLM:
+    """Dense GQA decoder LM over an emulated ring of ``n_pe`` PEs."""
+
+    def __init__(self, cfg: ModelConfig, n_pe: int = 0):
+        if cfg.family != "dense" or cfg.attention_type != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name}: only the dense GQA family is ported")
+        self.cfg = cfg
+        self.n_pe = n_pe
+
+    # ------------------------------------------------------------- params
+    def init(self, seed: int = 0, device="cuda"):
+        """Random parameters from a seeded ``torch.Generator``."""
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        cfg = self.cfg
+        return {
+            "embed": init_embedding(gen, cfg),
+            "final_norm": init_norm(gen, cfg),
+            "head": init_lm_head(gen, cfg),
+            "layers": [init_block(gen, cfg) for _ in range(cfg.num_layers)],
+        }
+
+    # ------------------------------------------------------------- forward
+    def hidden_states(self, params, tokens):
+        """tokens [B,S] -> final-norm hidden states [B,S,D]."""
+        x = embed(params["embed"], tokens, self.cfg)
+        for lp in params["layers"]:
+            x, _ = block_prefill(lp, x, self.cfg, self.n_pe)
+        return apply_norm(params["final_norm"], x, self.cfg)
+
+    def prefill(self, params, tokens):
+        """Forward pass returning last-position logits [B, V]."""
+        x = self.hidden_states(params, tokens)
+        return lm_logits(params["head"], params["embed"], x[:, -1], self.cfg)
+
+    # ------------------------------------------------------------- decode
+    def init_cache(self, batch: int, seq_len: int, device="cuda"):
+        dev = resolve_device(device)
+        one = attn.init_gqa_cache(self.cfg, batch, seq_len, dev)
+        layers = self.cfg.num_layers
+        return {"layers": {name: t.unsqueeze(0).repeat(
+            layers, *([1] * t.dim())) for name, t in one.items()}}
+
+    @staticmethod
+    def _layer_cache(cache, i: int):
+        return {name: t[i] for name, t in cache["layers"].items()}
+
+    def prefill_into_cache(self, params, cache, tokens, row: int,
+                           length: int):
+        """Batched prefill of one slot: run the full-sequence forward over
+        ``tokens`` [C] and write the post-rope K/V of positions [0, C) into
+        cache row ``row``, setting its position to ``length``.
+
+        As in the reference, the forward runs at the cache's full
+        slot-batch width with the same tokens in every row (so the ring
+        schedules see the serving batch) and only ``row`` is written. Pad
+        positions past ``length`` are computed but never read before the
+        decode loop overwrites them (slot validity is ``slot <= pos``).
+        The cache is updated in place. Returns (logits [V] at position
+        length-1, cache).
+        """
+        cfg = self.cfg
+        if cfg.sliding_window:
+            raise NotImplementedError("prefill_into_cache needs full "
+                                      "attention caches")
+        c = tokens.shape[0]
+        layers = cache["layers"]
+        b = layers["pos"].shape[1]
+        x = embed(params["embed"], tokens[None].expand(b, c), cfg)  # [B,C,D]
+        for i, lp in enumerate(params["layers"]):
+            x, (k, v) = block_prefill(lp, x, cfg, self.n_pe)
+            layers["k"][i, row, :c] = k[0].to(layers["k"].dtype)
+            layers["v"][i, row, :c] = v[0].to(layers["v"].dtype)
+        layers["pos"][:, row] = length
+        # only row 0 at position length-1 is needed: the logits of other
+        # rows and positions are never read
+        x = apply_norm(params["final_norm"], x[0, length - 1], cfg)
+        return lm_logits(params["head"], params["embed"], x, cfg), cache
+
+    def decode_step(self, params, cache, tokens, active=None):
+        """tokens: [B,1] -> (logits [B,V], cache). ``active`` [B] bool masks
+        rows that should not consume a step (continuous batching)."""
+        x = embed(params["embed"], tokens, self.cfg)
+        for i, lp in enumerate(params["layers"]):
+            x, _ = block_decode(lp, x, self._layer_cache(cache, i), self.cfg,
+                                active=active, n_pe=self.n_pe)
+        x = apply_norm(params["final_norm"], x, self.cfg)
+        logits = lm_logits(params["head"], params["embed"], x, self.cfg)
+        return logits[:, 0], cache
