@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: build, check and time every kernel
-on the card, then serve qwen3-0.6b at full width on the emulated ring.
+on the card, serve qwen3-0.6b at full width on the emulated ring, and run
+the paper's DSP suite on an emulated 256-PE cluster.
 
     python3 chip_smoke.py
 
@@ -8,10 +9,10 @@ Needs one CUDA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` into ``build/``). Phases; any failure exits
 non-zero before the result lines are printed:
 
-1. device and build: the card's name and power limit, both kernels built
-   in parallel;
+1. device and build: the card's name and power limit, all four kernels
+   built in parallel;
 2. each kernel against its plain PyTorch twin on the card, at the main
-   path's shapes, with the stated tolerances; each timed (device time
+   paths' shapes, with the stated tolerances; each timed (device time
    under ``torch.profiler``) beside its twin, its bound and, where one
    PyTorch call computes the same function, that call (used here as a
    yardstick only);
@@ -21,7 +22,14 @@ non-zero before the result lines are printed:
    launch count must rise during this run; then one prefill and one decode
    step under ``torch.profiler`` for device time by kernel and idle share;
 4. modes agree: one prefill and one decode step at full width, 4 layers,
-   fp32, ring+kernel backends (qlr, xqueue, sw) against the dense backend.
+   fp32, ring+kernel backends (qlr, xqueue, sw) against the dense backend;
+5. the DSP suite, fp32, in baseline, sw, xqueue and qlr, at the paper's
+   sizes and at card scale: ``conv2d_systolic`` on 256 PEs, the pipelined
+   conv2d chains on 8 PEs, ``pipelined_fft`` on 4 PEs and
+   ``systolic_cannon`` on a 16x16 fold of 256 PEs. Each run is checked
+   against a plain reference, every mode must give identical values, and
+   each call must launch the kernels the expected number of times; the
+   conv2d, FFT-stage and tile-matmul kernels must all launch in the phase.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -75,26 +83,42 @@ def _kernel_rows(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def time_ms(fn, iters: int = 20, only: str | None = None) -> float:
+def time_ms(fn, iters: int = 20, only: str | None = None,
+            attempts: int = 3) -> float:
     """Device time of one call: the kernels' durations under
     ``torch.profiler``, summed over ``iters`` calls, divided by ``iters``
     (only the kernels whose name contains ``only``, when given). CUDA
     events around the calls would time the Python wrapper instead wherever
-    a kernel is shorter than its launch path."""
+    a kernel is shorter than its launch path, so they are only the
+    fallback: now and then a profiler session on the card records no
+    device activity for the calls, and after ``attempts`` such sessions
+    the calls are timed with CUDA events (logged). Whether a kernel
+    launched is checked by its counter, not here."""
     import torch
     from torch.profiler import ProfilerActivity
     fn()                                         # warm
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(ms for name, ms, _ in _kernel_rows(prof)
-               if only is None or only in name)
-    if busy == 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return busy / iters
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(ms for name, ms, _ in _kernel_rows(prof)
+                   if only is None or only in name)
+        if busy > 0:
+            return busy / iters
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    log(f"[timing] {attempts} profiler sessions recorded no device time "
+        f"for {only or 'a library call'}: {ms:.4f} ms from CUDA events")
+    return ms
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -273,6 +297,11 @@ def check_matmul(torch, mk, dev):
         "fp32_carry_ragged": (rnd(N_PE, 500, d, dtype=f32),
                               rnd(N_PE, d, 256, dtype=f32),
                               rnd(N_PE, 500, 256, dtype=f32), f32),
+        # one Cannon step at card scale (phase 5): 512x512 tiles on a
+        # 16x16 fold, fp32 carry
+        "cannon_card_fp32_carry": (rnd(256, 512, 512, dtype=f32),
+                                   rnd(256, 512, 512, dtype=f32),
+                                   rnd(256, 512, 512, dtype=f32), f32),
     }
     out = []
     for name, (a, b, c, odt) in cases.items():
@@ -305,6 +334,131 @@ def check_matmul(torch, mk, dev):
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"bmm {rec['library_ms']:.4f} ms")
         out.append(rec)
+    return out
+
+
+# conv2d: (P, rows per PE, W) — the paper's 256x256 image on 256 PEs, the
+# card-scale 8192x8192 image on 256 PEs, and ragged widths of both
+CONV_SHAPES = {"paper": (256, 1, 256), "paper_ragged": (256, 1, 250),
+               "card": (256, 32, 8192), "card_ragged": (256, 32, 8190)}
+
+
+def conv_halos(torch, x):
+    """The halo rows the ring delivers to the blocks of one image: the
+    neighbours' edge rows, zero at the image's top and bottom."""
+    z = torch.zeros_like(x[:1, :1])
+    return torch.cat([z, x[:-1, -1:]]), torch.cat([x[1:, :1], z])
+
+
+def check_conv(torch, ck, dev):
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(2)
+    f32 = torch.float32
+    out = []
+    for shape, (p, r, w) in CONV_SHAPES.items():
+        for dtype in (f32, torch.bfloat16):
+            x = torch.randn(p, r, w, generator=g, device=dev).to(dtype)
+            k = torch.randn(3, 3, generator=g, device=dev).to(dtype)
+            top, bot = conv_halos(torch, x)
+            got = ck.conv_cuda(x, top, bot, k)
+            want = ck.conv_plain(x, top, bot, k)
+            image, wk = x.reshape(1, 1, p * r, w), k.reshape(1, 1, 3, 3)
+            lib_call = lambda image=image, wk=wk: F.conv2d(  # noqa: E731
+                image, wk, padding=1)
+            lib = lib_call().reshape(p, r, w)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            # kernel and twin round every product and sum alike; fp32
+            # leaves room for a reordering, bf16 for one bf16 rounding
+            tol = (1e-5 if dtype == f32 else 2 ** -7) * scale
+            lib_err = float((lib.float() - want.float()).abs().max())
+            lib_tol = (1e-4 if dtype == f32 else 5e-2) * scale
+            b_ms, b_by = bound(nbytes(x, top, bot, k, got), 18 * x.numel(),
+                               "fp32")
+            name = f"{shape}_{'fp32' if dtype == f32 else 'bf16'}"
+            rec = {"case": name, "max_abs_err": err, "tol": tol,
+                   "library_err": lib_err, "library_tol": lib_tol,
+                   "ok": err <= tol and lib_err <= lib_tol,
+                   "ms": time_ms(lambda: ck.conv_cuda(x, top, bot, k),
+                                 only="conv2d_3x3_kernel"),
+                   "plain_ms": time_ms(lambda: ck.conv_plain(x, top, bot, k)),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": time_ms(lib_call),
+                   "shape": {"x": [p, r, w], "dtype": str(dtype)}}
+            log(f"[kernels] conv2d_3x3 {name}: max_abs_err={err:.3e} (tol "
+                f"{tol:.3e}), F.conv2d err {lib_err:.3e} (tol {lib_tol:.3e})"
+                f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}), F.conv2d "
+                f"{rec['library_ms']:.4f} ms")
+            out.append(rec)
+    return out
+
+
+def check_fft(torch, ffk, fft, dev):
+    """One pipeline tick (4 PEs at stages 0..3, stage 0 loading
+    digit-reversed) at the paper's batch of 64 and at 4096, and the
+    four-launch fft256 of a whole batch against ``torch.fft.fft``."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 256
+    tw = fft.twiddle_table(n, dev)
+    ticks = torch.arange(4, dtype=torch.int32, device=dev)
+    stage_vecs = [torch.full((1,), s, dtype=torch.int32, device=dev)
+                  for s in range(4)]
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(*shape, generator=g, device=dev),
+                             torch.randn(*shape, generator=g, device=dev))
+
+    def fft256_plain(x):
+        y = x.reshape(1, -1, n)
+        for s in range(4):
+            y = ffk.stage_plain(y, stage_vecs[s], tw, reverse=(s == 0))
+        return y.reshape(x.shape)
+
+    out = []
+    for b in (64, 4096):
+        for kind in ("tick", "fft256"):
+            if kind == "tick":
+                x = crandn(4, b, n)
+                call = lambda x=x: ffk.stage_cuda(x, ticks, tw,  # noqa: E731
+                                                  reverse=True)
+                plain = lambda x=x: ffk.stage_plain(x, ticks, tw,  # noqa
+                                                    reverse=True)
+                lib_call, flops = None, 34 * (n // 4) * 4 * b
+            else:
+                x = crandn(b, n)
+                call = lambda x=x: fft.fft256_radix4(x, n)  # noqa: E731
+                plain = lambda x=x: fft256_plain(x)  # noqa: E731
+                lib_call = lambda x=x: torch.fft.fft(x, dim=-1)  # noqa
+                flops = 4 * 34 * (n // 4) * b
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = max(1.0, float(want.abs().max()))
+            tol = 1e-5 * scale      # same roundings as the twin
+            ok = err <= tol
+            lib_err = None
+            if lib_call is not None:
+                lib = lib_call()
+                lib_err = float((got - lib).abs().max() / lib.abs().max())
+                ok = ok and lib_err <= 1e-3
+            b_ms, b_by = bound(nbytes(x, tw, got), flops, "fp32")
+            rec = {"case": f"{kind}_B{b}", "max_abs_err": err, "tol": tol,
+                   "library_rel_err": lib_err, "ok": ok,
+                   "ms": time_ms(call, only="fft_stage_kernel"),
+                   "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   "library_ms": time_ms(lib_call) if lib_call else None,
+                   "launches_per_call": 1 if kind == "tick" else 4,
+                   "shape": {"x": list(x.shape), "dtype": "complex64"}}
+            lib_txt = "n/a" if lib_call is None else \
+                f"{rec['library_ms']:.4f} ms (rel err {lib_err:.2e})"
+            log(f"[kernels] fft_stage {rec['case']}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"torch.fft {lib_txt}")
+            out.append(rec)
     return out
 
 
@@ -456,6 +610,142 @@ def modes_agree(torch, dev):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the DSP suite
+# ---------------------------------------------------------------------------
+
+DSP_MODES = ("baseline", "sw", "xqueue", "qlr")
+# card scale: the conv2d image edge, the chain strips' image [H, W], the
+# cfft microbatch count and the Cannon matmul edge
+CARD = {"conv": 8192, "chains": (8192, 8192), "fft_m": 1024, "matmul": 8192}
+
+
+def dsp_run(torch, kernels, workload, size, call, check, expect, flops,
+            reps, profiled=False):
+    """Run ``call(mode)`` in every mode: the first call's launches must be
+    ``expect(mode)`` per kernel and its values those of the baseline and
+    within ``check``; then ``reps`` calls give the wall time per call.
+    ``profiled``: one more qlr call under ``torch.profiler`` gives the
+    device time by kernel and the idle share."""
+    rows, base = [], None
+    for mode in DSP_MODES:
+        before = {k.name: k.launches for k in kernels}
+        y = call(mode)
+        torch.cuda.synchronize()
+        launched = {k.name: k.launches - before[k.name] for k in kernels}
+        want = {k.name: expect(mode).get(k.name, 0) for k in kernels}
+        assert launched == want, (workload, size, mode, launched, want)
+        if base is None:
+            base, err = y, check(y)
+        else:
+            assert torch.equal(y, base), (workload, size, mode,
+                                          "values differ from baseline")
+        del y
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call(mode)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+        rows.append({"workload": workload, "size": size, "mode": mode,
+                     "wall_ms": wall * 1e3, "gops_per_s": flops / wall / 1e9,
+                     "launches_per_call": {k: v for k, v in launched.items()
+                                           if v}, "max_rel_err": err})
+        log(f"[dsp] {workload} {size} {mode}: {wall * 1e3:.3f} ms/call, "
+            f"{flops / wall / 1e9:.2f} GOP/s, launches "
+            f"{rows[-1]['launches_per_call']}, rel err vs plain ref "
+            f"{err:.2e}")
+        if profiled and mode == "qlr":
+            rows[-1]["breakdown"] = profile(torch, lambda: call(mode))
+    return rows
+
+
+def dsp_suite(torch, kernels, dev):
+    """The paper's three DSP kernels on the emulated PE axis, fp32, at the
+    MemPool sizes of ``configs/mempool_dsp.py`` and at card scale."""
+    from repro_torch.configs.mempool_dsp import CFFT, CONV2D, MATMUL
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.core import fft, halo, pipeline
+    g = torch.Generator(device=dev).manual_seed(5)
+    conv, fftk, mm = "conv2d_3x3", "fft_stage", "tile_matmul"
+    kern = torch.randn(3, 3, generator=g, device=dev)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def within(tol, err):
+        assert err <= tol, (err, tol)
+        return err
+
+    rows = []
+    # conv2d_systolic: one conv launch per call (baseline: the whole image)
+    sizes = {"mempool": (CONV2D.H, CONV2D.W, 20),
+             "card": (CARD["conv"], CARD["conv"], 5)}
+    for size, (h, w, reps) in sizes.items():
+        x = torch.randn(h, w, generator=g, device=dev)
+        want = halo.conv2d_ref(x, kern)
+        rows += dsp_run(
+            torch, kernels, "conv2d_systolic", f"{size} {h}x{w} P=256",
+            lambda mode, x=x: halo.conv2d_systolic(x, kern, 256, mode),
+            lambda y, want=want: within(1e-4, rel(y, want)),
+            lambda mode: {conv: 1}, 2 * 9 * h * w, reps, size == "card")
+        del x, want
+    # conv2d chains (bench_conv2d_chains.py:46-60): 8 PEs, 16 microbatch
+    # strips; each stage convolves its strip with zero halos
+    def stage_fn(_p, x, _i):
+        return halo.conv2d_3x3_local(x, None, None, kern)
+
+    for size, (h, w, reps) in {"mempool": (256, 128, 10),
+                               "card": (*CARD["chains"], 3)}.items():
+        xs = torch.randn(16, h // 16, w, generator=g, device=dev)
+        for n_chains in (1, 2, 4):
+            n_stages = 8 // n_chains
+            want = xs.clone()
+            for _ in range(n_stages):
+                want = torch.stack([halo.conv2d_ref(v, kern) for v in want])
+            ticks = 16 // n_chains + n_stages - 1
+            rows += dsp_run(
+                torch, kernels, f"conv2d_chains{n_chains}",
+                f"{size} 16x{h // 16}x{w} P=8",
+                lambda mode, xs=xs, k=n_chains: pipeline.pipelined(
+                    stage_fn, 8, 16, mode, k)(None, xs),
+                lambda y, want=want: within(1e-4, rel(y, want)),
+                lambda mode, s=n_stages, t=ticks: {
+                    conv: s if mode == "baseline" else t},
+                n_stages * 2 * 9 * h * w, reps,
+                size == "card" and n_chains == 1)
+            del want
+        del xs
+    # pipelined_fft: M + 3 stage launches per call (baseline: fft256, 4)
+    n = CFFT.fft_points
+    for size, (m, reps) in {"mempool": (8, 20),
+                            "card": (CARD["fft_m"], 3)}.items():
+        xs = torch.complex(
+            torch.randn(m, CFFT.fft_batch, n, generator=g, device=dev),
+            torch.randn(m, CFFT.fft_batch, n, generator=g, device=dev))
+        want = torch.fft.fft(xs, dim=-1)
+        rows += dsp_run(
+            torch, kernels, "pipelined_fft",
+            f"{size} {m}x{CFFT.fft_batch}x{n} P=4",
+            lambda mode, xs=xs: fft.pipelined_fft(xs, 4, mode, n),
+            lambda y, want=want: within(1e-3, rel(y, want)),
+            lambda mode, m=m: {fftk: 4 if mode == "baseline" else m + 3},
+            m * CFFT.fft_batch * 8 * n * np.log2(n), reps, size == "card")
+        del xs, want
+    # Cannon on a 16x16 fold: 16 tile_matmul launches per call
+    for size, (d, reps) in {"mempool": (MATMUL.M, 10),
+                            "card": (CARD["matmul"], 2)}.items():
+        a = torch.randn(d, d, generator=g, device=dev)
+        b = torch.randn(d, d, generator=g, device=dev)
+        want = a @ b
+        rows += dsp_run(
+            torch, kernels, "cannon_matmul", f"{size} {d}^3 P=16x16",
+            lambda mode, a=a, b=b: cm.systolic_cannon(a, b, 16, mode),
+            lambda y, want=want: within(1e-4, rel(y, want)),
+            lambda mode: {mm: 16}, 2 * d ** 3, reps, size == "card")
+        del a, b, want
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -469,6 +759,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
+    from repro_torch.core import fft
+    from repro_torch.kernels.conv2d import kernel as ck
+    from repro_torch.kernels.fft import kernel as ffk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.systolic_matmul import kernel as mk
 
@@ -487,25 +780,45 @@ def main() -> int:
 
     flash = check_flash(torch, fk, dev)
     mm = check_matmul(torch, mk, dev)
-    bad = [r["case"] for r in flash + mm if not r["ok"]]
+    conv = check_conv(torch, ck, dev)
+    ffts = check_fft(torch, ffk, fft, dev)
+    bad = [r["case"] for r in flash + mm + conv + ffts if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
 
-    served = serve_full_width(torch, kernels.ALL, dev)
+    served = serve_full_width(torch, (fk.FLASH_CARRY, mk.TILE_MATMUL), dev)
     modes_agree(torch, dev)
+
+    for k in kernels.ALL:
+        k.launches = 0
+    t0 = time.perf_counter()
+    dsp = dsp_suite(torch, kernels.ALL, dev)
+    dsp_launches = {k.name: k.launches for k in kernels.ALL}
+    log(f"[dsp] phase {time.perf_counter() - t0:.1f} s, launches "
+        f"{dsp_launches}")
+    for k in (mk.TILE_MATMUL, ck.CONV2D_3X3, ffk.FFT_STAGE):
+        assert dsp_launches[k.name] > 0, \
+            f"kernel {k.name} never launched on the DSP path"
 
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
+        by_path = {"serve": served["launches"].get(kern.name, 0),
+                   "dsp": dsp_launches[kern.name]}
+        per_call = {c: v[kern.name] for c, v in
+                    served["launches_per_call"].items() if kern.name in v}
+        per_call.update({
+            f"{r['workload']} {r['size'].split()[0]} {r['mode']}":
+            r["launches_per_call"][kern.name]
+            for r in dsp if kern.name in r["launches_per_call"]})
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": served["launches"][kern.name],
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"], "primary_case": primary,
-                "launches_per_call": {c: v[kern.name] for c, v in
-                                      served["launches_per_call"].items()},
-                "cases": recs}
+                "launches_per_call": per_call, "cases": recs}
 
     report = {"kernels": [
         entry(fk.FLASH_CARRY, "src/repro_torch/csrc/flash_carry.cu",
@@ -514,7 +827,11 @@ def main() -> int:
         entry(mk.TILE_MATMUL, "src/repro_torch/csrc/tile_matmul.cu",
               "src/repro/kernels/systolic_matmul/kernel.py:104", mm,
               "ffn_ag_hop"),
-    ], "serve": served}
+        entry(ck.CONV2D_3X3, "src/repro_torch/csrc/conv2d_3x3.cu",
+              "src/repro/kernels/conv2d/kernel.py:50", conv, "card_fp32"),
+        entry(ffk.FFT_STAGE, "src/repro_torch/csrc/fft_stage.cu",
+              "src/repro/kernels/fft/kernel.py:58", ffts, "fft256_B4096"),
+    ], "serve": served, "dsp": dsp}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@ global tensors and do the split that ``shard_map`` does in the reference.
 
 Link modes: sw / xqueue / qlr (core/queues.py), plus ``baseline``: one
 all-gather and one local product (the pure shared-memory model).
+
+``cannon_matmul`` is the 2-D output-stationary form (the paper's matmul
+kernel): a square grid folded from the PE axis, A tiles streaming left
+along the rows and B tiles up along the columns.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import queues
 from repro_torch.core import topology as topo_lib
-from repro_torch.core.topology import Topology, ring
+from repro_torch.core.topology import Topology, ring, torus_shift
 from repro_torch.kernels.systolic_matmul.ops import tile_matmul
 
 
@@ -130,6 +134,143 @@ def ring_matmul_rs(x, w, topo: Topology, mode: str = "qlr"):
         moved = queues.hop(hops[t - 1], acc, mode)
         acc = part(t, moved)
     return acc
+
+
+def cannon_topologies(axis: str, rows: int,
+                      cols: int) -> tuple[Topology, Topology]:
+    """(left, up): Cannon's shift topologies on an RxC fold — A tiles move
+    left along the rows, B tiles up along the columns. Built as the
+    reference's benchmarks build them, by inverting ``torus_shift``
+    right and down."""
+    rt = torus_shift(axis, rows, cols, direction="right")
+    ct = torus_shift(axis, rows, cols, direction="down")
+    left = Topology("left", axis, rows * cols,
+                    tuple((d, s) for s, d in rt.perm))
+    up = Topology("up", axis, rows * cols, tuple((d, s) for s, d in ct.perm))
+    return left, up
+
+
+@functools.lru_cache(maxsize=64)
+def _rot_masks(times: tuple, n: int, device) -> torch.Tensor:
+    """[n-1, P] bool: entry (i, d) is True while PE d still rotates at
+    masked hop i (i < times[d]). Cached per device."""
+    return (torch.arange(n - 1)[:, None] < torch.tensor(times)[None]) \
+        .to(device)
+
+
+def _masked_rot(x, topo: Topology, times: tuple, n: int, mode: str = "qlr"):
+    """Rotate PE d's ``x`` ``times[d]`` hops along ``topo``: n-1 hops, PE d
+    keeping its value once hop i >= times[d]. The loop always runs n-1 hops
+    over the requested link mode: that is the masked skew's cost."""
+    masks = _rot_masks(tuple(times), n, x.device)
+    for i in range(n - 1):
+        moved = queues.hop(topo, x, mode)
+        x = torch.where(masks[i].view(-1, *([1] * (x.dim() - 1))), moved, x)
+    return x
+
+
+@functools.lru_cache(maxsize=16)
+def _cannon_sources(n: int, preskewed: bool, device):
+    """([n, P], [n, P]) long: the PEs whose A and B tiles PE (r, c) reads
+    at step t, k = (r + c + t) mod n, in the baseline's shared-memory
+    form. Unskewed, PE (r, c) holds A[r, c] and B[r, c]; preskewed, it
+    holds A[r, (r + c) mod n] and B[(r + c) mod n, c]."""
+    a_src = torch.empty(n, n * n, dtype=torch.long)
+    b_src = torch.empty(n, n * n, dtype=torch.long)
+    for t in range(n):
+        for r in range(n):
+            for c in range(n):
+                k = (r + c + t) % n
+                a_col = (k - r) % n if preskewed else k
+                b_row = (k - c) % n if preskewed else k
+                a_src[t, r * n + c] = r * n + a_col
+                b_src[t, r * n + c] = b_row * n + c
+    return a_src.to(device), b_src.to(device)
+
+
+def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
+                  rows: int, cols: int, mode: str = "qlr",
+                  preskewed: bool = False, skew: str = "masked"):
+    """2-D output-stationary systolic matmul (Cannon) on an RxC grid folded
+    from the PE axis. PE r*cols + c ends with C tile sum_k A[r,k] B[k,c].
+
+    a_local: [P, m, k] — A tiles; b_local: [P, k, n] — B tiles, PE (r, c)
+    holding A[r, c] and B[r, c] (already skewed when ``preskewed``).
+    row_topo / col_topo: the left / up shifts (``cannon_topologies``).
+    Each of the n consumes is one ``tile_matmul`` launch over all PEs,
+    carrying the accumulator (fp32 for fp32 tiles); n-1 hops per operand
+    follow all but the last.
+
+    skew="masked" rotates A row r left r times and B column c up c times
+    with n-1 masked hops each, over the requested link mode. skew="grid"
+    (one re-pointed grid hop per operand) waits for the 2-D grid
+    schedules. ``baseline`` is the shared-memory form: no hops; at step t
+    each PE gathers the tiles it needs, so it runs the same n launches on
+    the same operands, and every mode gives identical values.
+    """
+    if rows != cols:
+        raise ValueError("Cannon requires a square grid")
+    if skew == "grid":
+        raise NotImplementedError(
+            "cannon_matmul(skew='grid') needs the 2-D grid schedules, "
+            "which are not ported yet")
+    if skew != "masked":
+        raise ValueError(f"unknown skew {skew!r}")
+    queues.check_mode(mode, baseline=True)
+    n = rows
+    if a_local.shape[0] != n * n or b_local.shape[0] != n * n:
+        raise ValueError(f"cannon_matmul: {rows}x{cols} grid, tiles "
+                         f"{tuple(a_local.shape)} / {tuple(b_local.shape)}")
+    acc = None
+    if mode == "baseline":
+        a_src, b_src = _cannon_sources(n, preskewed, a_local.device)
+        for t in range(n):
+            acc = tile_matmul(a_local.index_select(0, a_src[t]),
+                              b_local.index_select(0, b_src[t]), acc)
+        return acc
+    if not preskewed:
+        pe = range(n * n)
+        a_local = _masked_rot(a_local, row_topo, tuple(d // cols for d in pe),
+                              n, mode)
+        b_local = _masked_rot(b_local, col_topo, tuple(d % cols for d in pe),
+                              n, mode)
+    for t in range(n):
+        last = t == n - 1
+        if mode == "qlr" and not last:   # next operands in flight first
+            nxt = (queues.hop(row_topo, a_local, mode),
+                   queues.hop(col_topo, b_local, mode))
+        acc = tile_matmul(a_local, b_local, acc)
+        if not last:
+            if mode != "qlr":
+                nxt = (queues.hop(row_topo, a_local, mode),
+                       queues.hop(col_topo, b_local, mode))
+            a_local, b_local = nxt
+    return acc
+
+
+def cannon_tiles(x, rows: int, cols: int):
+    """Global [M, K] -> per-PE tiles [rows*cols, M/rows, K/cols], PE
+    r*cols + c holding block (r, c)."""
+    m, k = x.shape
+    return x.reshape(rows, m // rows, cols, k // cols).transpose(1, 2) \
+        .reshape(rows * cols, m // rows, k // cols)
+
+
+def cannon_untile(tiles, rows: int, cols: int):
+    """Per-PE tiles [rows*cols, m, n] -> the global [rows*m, cols*n]."""
+    _, m, n = tiles.shape
+    return tiles.reshape(rows, cols, m, n).transpose(1, 2) \
+        .reshape(rows * m, cols * n)
+
+
+def systolic_cannon(a, b, n: int, mode: str = "qlr"):
+    """A @ B by Cannon on an n x n fold of n*n PEs: the tile layout that
+    ``shard_map``'s specs give in the reference benchmarks, the masked
+    skew, and the re-assembly of the C tiles. a: [M, K], b: [K, N]."""
+    left, up = cannon_topologies("pe", n, n)
+    c = cannon_matmul(cannon_tiles(a, n, n), cannon_tiles(b, n, n), left,
+                      up, n, n, mode)
+    return cannon_untile(c, n, n)
 
 
 def ffn_applicable(x, d_ff: int, n_pe: int) -> bool:

@@ -5,7 +5,9 @@ operands with ``ppermute``. Here every PE-local tensor carries a leading PE
 dimension ``[n_pe, ...]`` and a *hop* is a gather along that dimension by
 the topology's permutation: PE ``d`` receives what its predecessor pushed.
 A queue element may be a tuple of tensors; each rides its own queue (the
-paper's several-queues-per-PE layout), all hopping in lockstep.
+paper's several-queues-per-PE layout), all hopping in lockstep. On an
+open topology (``topology.chains``) a PE that no link feeds pops zeros,
+as ``ppermute`` gives in the reference.
 
 The link modes are orders of operations, as in the reference:
 
@@ -33,18 +35,19 @@ MODES = ("sw", "xqueue", "qlr")
 
 
 @functools.lru_cache(maxsize=64)
-def _pred_index(topo: Topology, device: torch.device) -> torch.Tensor:
-    """pred[d] = the PE whose push PE d pops (its topology predecessor)."""
+def _pred_index(topo: Topology, device: torch.device):
+    """(pred, heads): pred[d] = the PE whose push PE d pops (its topology
+    predecessor); heads = the PEs that no link feeds (None on a cycle),
+    whose pred is their own index and whose popped rows are zeroed."""
     pred = list(range(topo.size))
     receivers = set()
     for s, d in topo.perm:
         pred[d] = s
         receivers.add(d)
-    if len(receivers) != topo.size:
-        raise ValueError(
-            f"{topo.name}: every PE must receive on each hop; open chains "
-            "are not supported by the one-card ring")
-    return torch.tensor(pred, dtype=torch.long, device=device)
+    heads = sorted(set(range(topo.size)) - receivers)
+    return (torch.tensor(pred, dtype=torch.long, device=device),
+            torch.tensor(heads, dtype=torch.long, device=device)
+            if heads else None)
 
 
 def check_mode(mode: str, baseline: bool = False) -> None:
@@ -66,7 +69,11 @@ def _raw_hop(topo: Topology, x: torch.Tensor, pe_dim: int = 0):
     if x.shape[pe_dim] != topo.size:
         raise ValueError(f"PE dim {pe_dim} of {tuple(x.shape)} is not "
                          f"the ring size {topo.size}")
-    return x.index_select(pe_dim, _pred_index(topo, x.device))
+    pred, heads = _pred_index(topo, x.device)
+    out = x.index_select(pe_dim, pred)
+    if heads is not None:
+        out.index_fill_(pe_dim, heads, 0)
+    return out
 
 
 def hop(topo: Topology, x, mode: str = "qlr"):

@@ -5,10 +5,14 @@ A topology is a permutation over the PEs of one ring axis: ``perm`` lists
 dimension, and a hop gathers along it (``core/queues.hop``); building a
 different Topology object *is* the paper's runtime queue re-pointing.
 
-This slice carries the single-cycle schedules the ring ops need:
+The schedules the ring ops need:
 
-  ring       — circular stream (collective matmuls, ring attention)
-  snake_fold — one cycle in boustrophedon order over an RxC fold
+  ring        — circular stream (collective matmuls, ring attention, halos)
+  snake_fold  — one cycle in boustrophedon order over an RxC fold
+  chains      — k open chains with no wrap-around (pipelines: the heads
+                pop zeros, ``core/queues.hop``)
+  torus_shift — a 1-D PE axis folded into an RxC grid, every PE shifting
+                one step along a row or column (Cannon)
 
 2-D grid schedules (torus2d, cannon_grid) are not ported yet; decode, which
 needs a single cycle, falls back to the ring for them as the reference
@@ -34,6 +38,34 @@ class Topology:
 def ring(axis: str, size: int, step: int = 1) -> Topology:
     perm = tuple((i, (i + step) % size) for i in range(size))
     return Topology(f"ring{step:+d}", axis, size, perm)
+
+
+def chains(axis: str, size: int, n_chains: int = 1) -> Topology:
+    """k independent open chains; element 0 of each chain is the head
+    (mover PE). No wrap-around link."""
+    if size % n_chains:
+        raise ValueError(f"{n_chains} chains do not divide {size} PEs")
+    length = size // n_chains
+    perm = []
+    for c in range(n_chains):
+        base = c * length
+        for i in range(length - 1):
+            perm.append((base + i, base + i + 1))
+    return Topology(f"chains{n_chains}", axis, size, tuple(perm))
+
+
+def torus_shift(axis: str, rows: int, cols: int, *,
+                direction: str) -> Topology:
+    """Fold a 1-D PE axis into an RxC grid; shift right/left/down/up."""
+    step = {"right": (0, 1), "left": (0, -1), "down": (1, 0),
+            "up": (-1, 0)}
+    if direction not in step:
+        raise ValueError(direction)
+    dr, dc = step[direction]
+    perm = tuple((r * cols + c, ((r + dr) % rows) * cols + (c + dc) % cols)
+                 for r in range(rows) for c in range(cols))
+    return Topology(f"torus{rows}x{cols}_{direction}", axis, rows * cols,
+                    perm)
 
 
 def snake_ring(axis: str, rows: int, cols: int) -> Topology:

@@ -1,0 +1,11 @@
+"""The reference's kernel-level FFT contract ``fft256(x [B, n])``: the
+digit-reversed load and the four stage launches of
+``core/fft.fft256_radix4``."""
+from __future__ import annotations
+
+from repro_torch.core.fft import fft256_radix4
+
+
+def fft256(x, *, n: int = 256):
+    """x: [B, n] complex64 -> its FFT over the last axis."""
+    return fft256_radix4(x, n)

@@ -7,13 +7,17 @@ machine with only PyTorch and CUDA::
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 results differ from the twin only in the order of fp32
-sums (1e-4); bf16 results add one bf16 rounding (2e-2).
+sums (1e-4); bf16 results add one bf16 rounding (2e-2). The conv2d and
+FFT-stage kernels round every product and sum as their twins do, so they
+are held to 1e-5 (fp32) and one bf16 rounding (1e-2).
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+from repro_torch.kernels.conv2d import kernel as ck
+from repro_torch.kernels.fft import kernel as ffk
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.systolic_matmul import kernel as mk
 
@@ -114,3 +118,81 @@ def test_cuda_backward_matches_plain_autograd(cuda):
     want = torch.autograd.grad((c + x @ w).square().sum(), (x, w, c))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,r,w,halos", [
+    (4, 3, 300, True),        # ragged width, rows under one strip
+    (2, 40, 257, True),       # several row strips, one column past a block
+    (3, 1, 31, False),        # narrower than a warp, zero halos
+    (1, 64, 64, False),       # the whole-image form
+])
+def test_cuda_conv2d_vs_twin(cuda, dtype, p, r, w, halos):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(p, r, w, generator=g, device=cuda).to(dtype)
+    top = bot = None
+    if halos:
+        top = torch.randn(p, 1, w, generator=g, device=cuda).to(dtype)
+        bot = torch.randn(p, 1, w, generator=g, device=cuda).to(dtype)
+    k = torch.randn(3, 3, generator=g, device=cuda).to(dtype)
+    got = ck.conv_cuda(x, top, bot, k)
+    want = ck.conv_plain(x, top, bot, k)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_fft_stage_vs_twin(cuda, reverse):
+    from repro_torch.core.fft import twiddle_table
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p, b, n = 6, 5, 256
+    x = torch.complex(torch.randn(p, b, n, generator=g, device=cuda),
+                      torch.randn(p, b, n, generator=g, device=cuda))
+    stage = torch.tensor([0, 1, 2, 3, 0, 9], dtype=torch.int32, device=cuda)
+    tw = twiddle_table(n, cuda)
+    got = ffk.stage_cuda(x, stage, tw, reverse)
+    want = ffk.stage_plain(x, stage, tw, reverse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:5], want[:5], rtol=1e-5, atol=1e-5)
+    assert bool(torch.isnan(got[5]).all())     # no stage 9: poisoned
+
+
+@pytest.mark.cuda
+def test_cuda_dsp_paths_count_launches_and_agree(cuda):
+    """Each DSP path launches its kernels the expected number of times,
+    and every link mode gives the same values as the plain reference."""
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.core import fft, halo
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(64, 40, generator=g, device=cuda)
+    k = torch.randn(3, 3, generator=g, device=cuda)
+    xs = torch.complex(torch.randn(3, 2, 256, generator=g, device=cuda),
+                       torch.randn(3, 2, 256, generator=g, device=cuda))
+    a = torch.randn(32, 24, generator=g, device=cuda)
+    b = torch.randn(24, 16, generator=g, device=cuda)
+    outs = {}
+    for mode in ("baseline", "sw", "xqueue", "qlr"):
+        c0, f0, m0 = (ck.CONV2D_3X3.launches, ffk.FFT_STAGE.launches,
+                      mk.TILE_MATMUL.launches)
+        y_conv = halo.conv2d_systolic(x, k, 8, mode)
+        y_fft = fft.pipelined_fft(xs, 4, mode)
+        y_mm = cm.systolic_cannon(a, b, 4, mode)
+        torch.cuda.synchronize()
+        assert ck.CONV2D_3X3.launches == c0 + 1
+        assert ffk.FFT_STAGE.launches == f0 + (4 if mode == "baseline"
+                                               else 3 + 3)
+        assert mk.TILE_MATMUL.launches == m0 + 4
+        outs[mode] = (y_conv, y_fft, y_mm)
+    for got in outs.values():
+        for y, w in zip(got, outs["baseline"]):
+            assert torch.equal(y, w)
+    torch.testing.assert_close(outs["qlr"][0], halo.conv2d_ref(x, k),
+                               rtol=1e-4, atol=1e-4)
+    want = torch.fft.fft(xs, dim=-1)
+    assert float((outs["qlr"][1] - want).abs().max()
+                 / want.abs().max()) < 1e-3
+    torch.testing.assert_close(outs["qlr"][2], a @ b, rtol=1e-4, atol=1e-4)

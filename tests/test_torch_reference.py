@@ -87,6 +87,8 @@ def test_port_imports_no_jax():
         "import sys; sys.path.insert(0, %r)\n"
         "import repro_torch.serve.engine, repro_torch.kernels\n"
         "import repro_torch.core.ring_attention, repro_torch.models\n"
+        "import repro_torch.core.halo, repro_torch.core.fft\n"
+        "import repro_torch.configs.mempool_dsp, repro_torch.kernels.fft.ops\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n" % str(SRC))

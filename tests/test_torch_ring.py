@@ -67,6 +67,26 @@ def test_topology_tables_match_reference(ref, n, name):
                 rtp.resolve_safe(nm, "model", n, cycle_only=cyc).perm
 
 
+@pytest.mark.parametrize("size,k", [(8, 1), (8, 2), (8, 4), (6, 3),
+                                    (4, 4)])
+def test_chains_table_matches_reference(ref, size, k):
+    from repro.core import topology as rtp
+    port, want = tp.chains("model", size, k), rtp.chains("model", size, k)
+    assert (port.name, port.size, port.perm) == \
+        (want.name, want.size, want.perm)
+
+
+@pytest.mark.parametrize("rows,cols", [(2, 2), (4, 4), (2, 3)])
+@pytest.mark.parametrize("direction", ["right", "left", "down", "up"])
+def test_torus_shift_table_matches_reference(ref, rows, cols, direction):
+    from repro.core import topology as rtp
+    port = tp.torus_shift("model", rows, cols, direction=direction)
+    want = rtp.torus_shift("model", rows, cols, direction=direction)
+    assert (port.name, port.size, port.perm) == \
+        (want.name, want.size, want.perm)
+    assert tp.is_cycle(port) == rtp.is_cycle(want)
+
+
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_stream_modes_identical_and_buffer_returns_home(n):
     topo = tp.ring("model", n)
