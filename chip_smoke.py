@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: build, check and time every kernel
-on the card, serve qwen3-0.6b at full width on the emulated ring, and run
-the paper's DSP suite on an emulated 256-PE cluster.
+on the card, serve qwen3-0.6b at full width on the emulated ring, run the
+paper's DSP suite on an emulated 256-PE cluster, and prefill and serve
+mamba2-1.3b at full width and depth.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,7 @@ Needs one CUDA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` into ``build/``). Phases; any failure exits
 non-zero before the result lines are printed:
 
-1. device and build: the card's name and power limit, all four kernels
+1. device and build: the card's name and power limit, all five kernels
    built in parallel;
 2. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes, with the stated tolerances; each timed (device time
@@ -29,7 +30,19 @@ non-zero before the result lines are printed:
    ``systolic_cannon`` on a 16x16 fold of 256 PEs. Each run is checked
    against a plain reference, every mode must give identical values, and
    each call must launch the kernels the expected number of times; the
-   conv2d, FFT-stage and tile-matmul kernels must all launch in the phase.
+   conv2d, FFT-stage and tile-matmul kernels must all launch in the phase;
+6. Mamba2 prefill: mamba2-1.3b at full width and depth (48 layers), bf16,
+   random weights from seed 0, 4 prompts x 2048 tokens; every call must
+   launch the SSD kernel once per layer; wall time, tokens/s, peak memory,
+   and device time by kernel and idle share under ``torch.profiler``;
+7. Mamba2 prefill/decode parity (``tests/test_parity.py`` at full width,
+   4 layers, fp32): prompts of 256 and 512 tokens (one and two SSD
+   chunks) through ``prefill`` and streamed through ``decode_step`` give
+   the same last logits within 2e-3;
+8. Mamba2 serving: ``ServeEngine`` over ``DecodeBackend``, full width and
+   depth, bf16, ``prefill_chunk=256``: the model has no block prefill, so
+   prompts stream through the decode step (the SSD kernel is not on this
+   path); 8 requests plus 2 admitted mid-run must all complete.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -68,12 +81,13 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _kernel_rows(prof):
-    """(name, device ms, count) of every device kernel in a profile. CPU
-    ops are skipped: their kernels appear as rows of their own."""
+def _kernel_rows(prof, ops: bool = False):
+    """(name, device ms, count) of every device kernel in a profile; with
+    ``ops``, of every CPU op instead, by the device time of the kernels it
+    launched itself (not its children's)."""
     rows = []
     for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        if str(getattr(evt, "device_type", "")).endswith("CUDA") == ops:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -462,6 +476,93 @@ def check_fft(torch, ffk, fft, dev):
     return out
 
 
+# SSD chunk pass: (batch, heads, groups, seq, L, P, N, a, dt shift). The
+# prefill case is mamba2-1.3b's (4 prompts of 2048 tokens, 64 heads, A = -1
+# as A_log = 0 initialises it); the overflow case drives cum to about -1300
+SSD_CASES = {"prefill": (4, 64, 1, 2048, 256, 64, 128, -1.0, 0.0),
+             "groups2": (2, 64, 2, 512, 256, 64, 128, None, 0.0),
+             "ragged_small": (4, 8, 1, 64, 16, 16, 16, None, 0.0),
+             "overflow": (1, 8, 1, 512, 256, 64, 128, -4.0, 1.0)}
+
+
+def ssd_flops(bsz, h, grp, nc, l, p, n):
+    """(the least the function needs, as the reference's kernel computes
+    it). Needed: the causal triangle of C B^T once per (batch, group,
+    chunk), the causal triangle of M x and the boundary state per (head,
+    chunk). The reference's kernel: 2 L^2 N for C B^T, 2 L^2 P for M x and
+    2 L P N for the state, per (head, chunk)."""
+    tri = l * (l + 1) // 2
+    return (bsz * grp * nc * 2 * tri * n
+            + bsz * h * nc * (2 * tri * p + 2 * l * p * n),
+            bsz * h * nc * (2 * l * l * n + 2 * l * l * p + 2 * l * p * n))
+
+
+def check_ssd(torch, sk, dev):
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for case, (bsz, h, grp, seq, l, p, n, a_val, shift) in SSD_CASES.items():
+        nc, bh = seq // l, bsz * h
+        for dtype in (torch.float32, torch.bfloat16):
+            def rnd(*shape):
+                return torch.randn(*shape, generator=g, device=dev)
+            x = rnd(bh, nc, l, p).to(dtype)
+            dt = F.softplus(rnd(bh, nc, l, 1) + shift)
+            a_h = torch.full((h,), a_val, device=dev) if a_val is not None \
+                else -torch.exp(rnd(h) * 0.3)
+            a = a_h.repeat(bsz).reshape(bh, 1, 1, 1)
+            b = (rnd(bsz * grp, nc, l, n) * 0.3).to(dtype)
+            c = (rnd(bsz * grp, nc, l, n) * 0.3).to(dtype)
+            opts = dict(nheads=h, ngroups=grp)
+            got = sk.ssd_chunks_cuda(x, dt, a, b, c, **opts)
+            want = sk.ssd_chunks_plain(x, dt, a, b, c, **opts)
+            torch.cuda.synchronize()
+            # the reference's bound for its kernel against the chunked
+            # scan, relative to each output's largest value; kernel and
+            # twin share cum (summed in float64) and widen bf16 alike
+            errs = [float((u - w).abs().max() / max(1.0, float(
+                w.abs().max()))) for u, w in zip(got, want)]
+            tol = 1e-4
+            finite = all(bool(torch.isfinite(u).all()) for u in got)
+            flops, flops_ref = ssd_flops(bsz, h, grp, nc, l, p, n)
+            b_ms, b_by = bound(nbytes(x, dt, a, b, c, *got), flops, "fp32")
+            # yardstick: the three batched products alone, per head, fp32
+            rows = sk.group_rows(bh, h, grp, dev)
+            xf, bf, cf = x.float(), b.float()[rows], c.float()[rows]
+            m = torch.randn(bh, nc, l, l, generator=g, device=dev)
+
+            def products(xf=xf, bf=bf, cf=cf, m=m):
+                torch.matmul(cf, bf.transpose(-1, -2))
+                torch.matmul(m, xf)
+                torch.matmul(xf.transpose(-1, -2), bf)
+            name = f"{case}_{'fp32' if dtype == torch.float32 else 'bf16'}"
+            rec = {"case": name, "max_abs_err": max(errs), "errs": errs,
+                   "tol": tol, "ok": finite and max(errs) <= tol,
+                   "ms": time_ms(lambda: sk.ssd_chunks_cuda(
+                       x, dt, a, b, c, **opts), iters=10,
+                       only="ssd_chunks_kernel"),
+                   "plain_ms": time_ms(lambda: sk.ssd_chunks_plain(
+                       x, dt, a, b, c, **opts), iters=5),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_reference_ms": bound(nbytes(x, dt, a, b, c, *got),
+                                               flops_ref, "fp32")[0],
+                   "flops": flops, "flops_reference": flops_ref,
+                   "library_ms": None,
+                   "products_ms": time_ms(products, iters=5),
+                   "shape": {"x": list(x.shape), "b": list(b.shape),
+                             "dtype": str(dtype)}}
+            log(f"[kernels] ssd_chunks {name}: rel errs (y, states, expcum) "
+                f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol}) kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}; at the reference kernel's work "
+                f"{rec['bound_reference_ms']:.4f}), library n/a, three "
+                f"products alone (torch.matmul fp32, yardstick) "
+                f"{rec['products_ms']:.4f} ms")
+            out.append(rec)
+            del x, dt, a, b, c, got, want, xf, bf, cf, m
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3 and 4: the main path
 # ---------------------------------------------------------------------------
@@ -548,9 +649,10 @@ def serve_full_width(torch, kernels, dev):
 
 
 def profile(torch, fn, top: int = 6) -> dict:
-    """Device time by kernel for one call under ``torch.profiler``, and the
-    device's idle share of the call's wall time (one stream, so kernel
-    times add up to the busy time)."""
+    """Device time by kernel and by the aten op that launched it for one
+    call under ``torch.profiler``, and the device's idle share of the
+    call's wall time (one stream, so kernel times add up to the busy
+    time)."""
     from torch.profiler import ProfilerActivity
     fn()                                         # warm
     torch.cuda.synchronize()
@@ -567,7 +669,9 @@ def profile(torch, fn, top: int = 6) -> dict:
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "top": [{"kernel": k[:80], "ms": ms, "count": n}
-                   for k, ms, n in rows[:top]]}
+                   for k, ms, n in rows[:top]],
+           "top_ops": [{"op": k[:60], "ms": ms, "count": n}
+                       for k, ms, n in _kernel_rows(prof, ops=True)[:top]]}
     log(f"[profile] {json.dumps(out)}")
     return out
 
@@ -746,6 +850,142 @@ def dsp_suite(torch, kernels, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 6 to 8: Mamba2
+# ---------------------------------------------------------------------------
+
+MAMBA_PROMPTS, MAMBA_SEQ = 4, 2048
+
+
+def mamba_prefill(torch, kernels, sk, dev, reps: int = 3):
+    """Full-width, full-depth prefill, counted and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-1.3b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    rng = np.random.default_rng(6)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (MAMBA_PROMPTS, MAMBA_SEQ)), device=dev)
+    with torch.inference_mode():
+        model.prefill(params, tokens)                # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            logits = model.prefill(params, tokens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        assert launches[sk.SSD_CHUNKS.name] == reps * cfg.num_layers, \
+            launches
+        assert logits.shape == (MAMBA_PROMPTS, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        breakdown = profile(torch, lambda: model.prefill(params, tokens),
+                            top=8)
+    wall = sorted(walls)[len(walls) // 2]
+    result = {"prompts": MAMBA_PROMPTS, "seq": MAMBA_SEQ,
+              "layers": cfg.num_layers, "walls_s": walls, "wall_s": wall,
+              "tokens_per_s": MAMBA_PROMPTS * MAMBA_SEQ / wall,
+              "launches": launches,
+              "launches_per_call": {k: n // reps
+                                    for k, n in launches.items()},
+              "peak_mem_gb": peak, "breakdown": breakdown}
+    log(f"[mamba-prefill] {json.dumps(result)}")
+    return result
+
+
+def mamba_parity(torch, sk, dev):
+    """Prefill against token-by-token decode, 4 layers, fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("mamba2-1.3b"), num_layers=4, dtype="float32",
+                  param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=1, device=dev)
+    rng = np.random.default_rng(7)
+    tol = 2e-3               # tests/test_parity.py's bound
+    errs = {}
+    with torch.inference_mode():
+        for seq in (256, 512):                      # one and two chunks
+            tokens = torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (2, seq)), device=dev)
+            before = sk.SSD_CHUNKS.launches
+            want = model.prefill(params, tokens)
+            assert sk.SSD_CHUNKS.launches == before + cfg.num_layers
+            cache = model.init_cache(2, seq, device=dev)
+            for t in range(seq):
+                got, cache = model.decode_step(params, cache,
+                                               tokens[:, t:t + 1])
+            diff = (got - want).abs()
+            excess = float((diff - tol * want.abs()).max())  # vs atol
+            errs[seq] = {"max_abs_err": float(diff.max()),
+                         "max_err_less_rtol_share": excess}
+            log(f"[mamba-parity] {seq} tokens: prefill vs decode max abs "
+                f"err {float(diff.max()):.3e} (atol {tol} + rtol {tol})")
+            assert excess <= tol, (seq, errs[seq])
+            assert bool(torch.isfinite(got).all())
+    return errs
+
+
+def mamba_serve(torch, kernels, sk, dev):
+    """ServeEngine over DecodeBackend at full width and depth."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded_cache import DecodeBackend
+    cfg = get_config("mamba2-1.3b")
+    params = build_model(cfg).init(seed=0, device=dev)
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=128, prefill_chunk=CHUNK)
+    backend = DecodeBackend(cfg, scfg, params, device=dev)
+    assert backend.prefill_len(64) == 0, "Mamba2 has no block prefill"
+    engine = ServeEngine(cfg, scfg, params, backend=backend, device=dev)
+    rng = np.random.default_rng(8)
+
+    def prompt():
+        return rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(16, 65))).astype(np.int32)
+
+    requests = [engine.sched.submit(prompt(), 16) for _ in range(BATCH)]
+    late = [prompt() for _ in range(2)]
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick = 0
+    while engine.sched.busy or late:
+        if tick == 4 and late:                   # admitted mid-run
+            requests += [engine.sched.submit(p, 16) for p in late]
+            late = []
+        engine._admit()
+        engine.step()
+        tick += 1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    tokens = int(engine.metrics.counter("repro_tokens_total").value)
+    assert len(requests) == BATCH + 2
+    for r in requests:
+        assert r.status == "done", (r.rid, r.status)
+        assert len(r.out_tokens) == r.max_new_tokens, r.rid
+        assert all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+    result = {"requests": len(requests), "ticks": tick, "tokens": tokens,
+              "prompt_tokens_streamed": int(sum(len(r.prompt)
+                                                for r in requests)),
+              "seconds": elapsed, "tokens_per_s": tokens / elapsed,
+              "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("[mamba-serve] prompts stream through decode_step: the reference "
+        "has no Mamba block prefill, so the SSD kernel is not on this path "
+        f"(launches {launches})")
+    log(f"[mamba-serve] {json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -763,6 +1003,7 @@ def main() -> int:
     from repro_torch.kernels.conv2d import kernel as ck
     from repro_torch.kernels.fft import kernel as ffk
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.systolic_matmul import kernel as mk
 
     dev = torch.device("cuda")
@@ -782,7 +1023,9 @@ def main() -> int:
     mm = check_matmul(torch, mk, dev)
     conv = check_conv(torch, ck, dev)
     ffts = check_fft(torch, ffk, fft, dev)
-    bad = [r["case"] for r in flash + mm + conv + ffts if not r["ok"]]
+    ssds = check_ssd(torch, sk, dev)
+    bad = [r["case"] for r in flash + mm + conv + ffts + ssds
+           if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
 
@@ -800,16 +1043,28 @@ def main() -> int:
         assert dsp_launches[k.name] > 0, \
             f"kernel {k.name} never launched on the DSP path"
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prefill = mamba_prefill(torch, kernels.ALL, sk, dev)
+    parity = mamba_parity(torch, sk, dev)
+    mserve = mamba_serve(torch, kernels.ALL, sk, dev)
+    log(f"[mamba] phases 6-8 {time.perf_counter() - t0:.1f} s")
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
-                   "dsp": dsp_launches[kern.name]}
+                   "dsp": dsp_launches[kern.name],
+                   "mamba_prefill": prefill["launches"][kern.name],
+                   "mamba_serve": mserve["launches"][kern.name]}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
             f"{r['workload']} {r['size'].split()[0]} {r['mode']}":
             r["launches_per_call"][kern.name]
             for r in dsp if kern.name in r["launches_per_call"]})
+        if prefill["launches_per_call"][kern.name]:
+            per_call["mamba_prefill"] = \
+                prefill["launches_per_call"][kern.name]
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path.values()),
@@ -827,11 +1082,14 @@ def main() -> int:
         entry(mk.TILE_MATMUL, "src/repro_torch/csrc/tile_matmul.cu",
               "src/repro/kernels/systolic_matmul/kernel.py:104", mm,
               "ffn_ag_hop"),
+        entry(sk.SSD_CHUNKS, "src/repro_torch/csrc/ssd_chunks.cu",
+              "src/repro/kernels/ssd/kernel.py:74", ssds, "prefill_bf16"),
         entry(ck.CONV2D_3X3, "src/repro_torch/csrc/conv2d_3x3.cu",
               "src/repro/kernels/conv2d/kernel.py:50", conv, "card_fp32"),
         entry(ffk.FFT_STAGE, "src/repro_torch/csrc/fft_stage.cu",
               "src/repro/kernels/fft/kernel.py:58", ffts, "fft256_B4096"),
-    ], "serve": served, "dsp": dsp}
+    ], "serve": served, "dsp": dsp, "mamba_prefill": prefill,
+        "mamba_parity": parity, "mamba_serve": mserve}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

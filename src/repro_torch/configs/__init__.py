@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``."""
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_0p6b
+from repro_torch.configs import mamba2_1p3b, qwen3_0p6b
 from repro_torch.configs.base import ModelConfig, ServeConfig
 
 __all__ = ["ARCHS", "ModelConfig", "ServeConfig", "get_config",
@@ -9,6 +9,7 @@ __all__ = ["ARCHS", "ModelConfig", "ServeConfig", "get_config",
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0p6b,
+    "mamba2-1.3b": mamba2_1p3b,
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)

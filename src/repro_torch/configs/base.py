@@ -1,9 +1,10 @@
 """Configuration dataclasses of the port.
 
-The fields the dense serving slice reads, with the reference's names and
-defaults (``repro/configs/base.py``), so a configuration reads the same in
-both packages. Fields of families the port does not cover yet (MoE, MLA,
-SSM, enc-dec, VLM) are left out until their slice lands.
+The fields the ported slices read (dense serving, Mamba2), with the
+reference's names and defaults (``repro/configs/base.py``), so a
+configuration reads the same in both packages. Fields of families the port
+does not cover yet (MoE, MLA, hybrid, enc-dec, VLM) are left out until
+their slice lands.
 """
 from __future__ import annotations
 
@@ -39,6 +40,14 @@ class ModelConfig:
     # attention flavor
     attention_type: str = "gqa"    # gqa only in this slice
     sliding_window: int = 0        # 0 -> full attention
+
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_ngroups: int = 1
+    ssm_conv_kernel: int = 4
+    ssm_chunk: int = 256
 
     # numerics
     dtype: str = "bfloat16"        # activation/compute dtype

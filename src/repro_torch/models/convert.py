@@ -2,8 +2,9 @@
 
 The reference keeps a tree whose ``layers`` leaves are stacked along a
 leading layer dimension (``models/common.split_tree`` of its ``init``);
-the port keeps a list of per-layer dicts. ``params_from_reference`` takes
-that tree with numpy leaves (``np.asarray`` of each value, bfloat16
+the port keeps a list of per-layer dicts (dense: ``{norm1, norm2, attn,
+mlp}``; Mamba2: ``{norm, mixer}``). ``params_from_reference`` takes that
+tree with numpy leaves (``np.asarray`` of each value, bfloat16
 included) so both packages compute the same function in the tests.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import pdtype, resolve_device
+
+FP32_LEAVES = ("A_log", "D", "dt_bias")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -28,20 +31,38 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _at(a, index):
+    """Layer ``index`` of a stacked leaf (the whole leaf for None)."""
+    return a if index is None else np.asarray(a)[index]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def params_from_reference(tree, cfg: ModelConfig, device="cuda"):
-    """Reference value tree (numpy leaves) -> the port's parameters."""
+    """Reference value tree (numpy leaves) -> the port's parameters. Every
+    leaf takes the parameter dtype except those the reference keeps fp32
+    whatever it is (``FP32_LEAVES``: Mamba2's ``A_log``, ``D``,
+    ``dt_bias``)."""
     dev = resolve_device(device)
     dt = pdtype(cfg)
-    convert = lambda a: _tensor(a, dt, dev)  # noqa: E731
+
+    def convert(tree, index=None, name=""):
+        if isinstance(tree, dict):
+            return {k: convert(v, index, k) for k, v in tree.items()}
+        return _tensor(_at(tree, index),
+                       torch.float32 if name in FP32_LEAVES else dt, dev)
+
     layers = tree["layers"]
-    n_layers = np.asarray(layers["norm1"]["scale"]).shape[0]
+    n_layers = np.asarray(_first_leaf(layers)).shape[0]
     return {
-        "embed": _map(tree["embed"], convert),
-        "final_norm": _map(tree["final_norm"], convert),
-        "head": _map(tree.get("head", {}), convert),
-        "layers": [_map(layers, lambda a, i=i: _tensor(np.asarray(a)[i], dt,
-                                                       dev))
-                   for i in range(n_layers)],
+        "embed": convert(tree["embed"]),
+        "final_norm": convert(tree["final_norm"]),
+        "head": convert(tree.get("head", {})),
+        "layers": [convert(layers, i) for i in range(n_layers)],
     }
 
 

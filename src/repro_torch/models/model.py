@@ -1,15 +1,21 @@
 """Unified model interface: ``build_model(cfg, n_pe) -> model``.
 
-Only the dense family is ported; the model exposes ``init``, ``prefill``,
-``init_cache``, ``prefill_into_cache`` and ``decode_step``.
+The dense family (``TransformerLM``: ``init``, ``prefill``, ``init_cache``,
+``prefill_into_cache``, ``decode_step``) and the ssm family (``MambaLM``:
+the same without ``prefill_into_cache``) are ported.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.zamba import MambaLM
 
 
 def build_model(cfg: ModelConfig, n_pe: int = 0):
     if cfg.family == "dense":
         return TransformerLM(cfg, n_pe=n_pe)
+    if cfg.family == "ssm":
+        if n_pe:
+            raise NotImplementedError("MambaLM has no ring path (n_pe=0)")
+        return MambaLM(cfg)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

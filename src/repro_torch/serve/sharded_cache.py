@@ -1,7 +1,8 @@
 """Decode backends: the device-side halves of the serving engine.
 
-* :class:`DecodeBackend` — dense: one ``model.decode_step`` per tick over
-  the slot batch, no ring and no kernels.
+* :class:`DecodeBackend` — one ``model.decode_step`` per tick over the
+  slot batch, no ring: the dense LM, or Mamba2 (whose prompts stream
+  through the decode step, having no block prefill).
 * :class:`RingShardedBackend` — the hybrid systolic layout on one card:
   the model runs over an emulated ring of ``n_pe`` PEs with
   ``cfg.systolic_mode`` set to a link mode, so decode streams each row's
@@ -70,7 +71,10 @@ class DecodeBackend:
 
     @property
     def supports_prefill(self) -> bool:
+        """Block prefill needs the model's ``prefill_into_cache`` (Mamba2
+        has none: its prompts stream through the decode step)."""
         return (self.scfg.prefill_chunk > 0
+                and hasattr(self.model, "prefill_into_cache")
                 and self.cfg.attention_type == "gqa"
                 and not self.cfg.sliding_window)
 

@@ -9,7 +9,10 @@ machine with only PyTorch and CUDA::
 Tolerances: fp32 results differ from the twin only in the order of fp32
 sums (1e-4); bf16 results add one bf16 rounding (2e-2). The conv2d and
 FFT-stage kernels round every product and sum as their twins do, so they
-are held to 1e-5 (fp32) and one bf16 rounding (1e-2).
+are held to 1e-5 (fp32) and one bf16 rounding (1e-2). The SSD chunk
+kernel is held to 1e-4 relative to its largest output, the reference's
+bound for its Pallas kernel against the chunked scan; bf16 inputs are
+widened to fp32 alike in kernel and twin, so the bound holds for them too.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from repro_torch.kernels.conv2d import kernel as ck
 from repro_torch.kernels.fft import kernel as ffk
 from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.ssd import kernel as sk
 from repro_torch.kernels.systolic_matmul import kernel as mk
 
 
@@ -196,3 +200,81 @@ def test_cuda_dsp_paths_count_launches_and_agree(cuda):
     assert float((outs["qlr"][1] - want).abs().max()
                  / want.abs().max()) < 1e-3
     torch.testing.assert_close(outs["qlr"][2], a @ b, rtol=1e-4, atol=1e-4)
+
+
+SSD_CASES = {
+    # (batch, heads, groups, chunks, L, P, N, a, dt shift)
+    "full_width": (1, 8, 1, 2, 256, 64, 128, None, 0.0),
+    "groups2": (2, 4, 2, 3, 64, 64, 128, None, 0.0),
+    "ragged": (2, 3, 1, 2, 100, 24, 40, None, 0.0),
+    "small": (2, 4, 1, 3, 16, 16, 16, None, 0.0),
+    # cum reaches about -1300: exp(cum) underflows, and above the diagonal
+    # exp(cum[t] - cum[s]) overflows to inf
+    "overflow": (1, 2, 1, 2, 256, 64, 128, -4.0, 1.0),
+}
+
+
+def ssd_inputs(dev, dtype, bsz, h, g, nc, l, p, n, a_val, dt_shift, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x = rnd(bsz * h, nc, l, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(bsz * h, nc, l, 1) + dt_shift)
+    a_h = torch.full((h,), a_val, device=dev) if a_val is not None \
+        else -torch.exp(rnd(h) * 0.3)
+    a = a_h.repeat(bsz).reshape(bsz * h, 1, 1, 1)
+    b = (rnd(bsz * g, nc, l, n) * 0.3).to(dtype)
+    c = (rnd(bsz * g, nc, l, n) * 0.3).to(dtype)
+    return x, dt, a, b, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_cuda_ssd_chunks_vs_twin(cuda, dtype, case):
+    bsz, h, g, nc, l, p, n, a_val, shift = SSD_CASES[case]
+    args = ssd_inputs(cuda, dtype, bsz, h, g, nc, l, p, n, a_val, shift)
+    got = sk.ssd_chunks_cuda(*args, nheads=h, ngroups=g)
+    want = sk.ssd_chunks_plain(*args, nheads=h, ngroups=g)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and x.shape == y.shape
+        assert bool(torch.isfinite(x).all())
+        tol = 1e-4 * max(1.0, float(y.abs().max()))
+        torch.testing.assert_close(x, y, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt, a, b, c = ssd_inputs(cuda, torch.float32, 1, 2, 1, 1, 16, 16,
+                                16, None, 0.0)
+    with pytest.raises(ValueError):
+        sk.ssd_chunks_cuda(x, dt, a, b.cpu(), c, nheads=2, ngroups=1)
+    with pytest.raises(TypeError):
+        sk.ssd_chunks_cuda(x, dt, a, b.bfloat16(), c, nheads=2, ngroups=1)
+    wide = torch.zeros(2, 1, 16, 80, device=cuda)
+    with pytest.raises(ValueError, match="headdim"):
+        sk.ssd_chunks_cuda(wide, dt, a, b, c, nheads=2, ngroups=1)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_prefill_launches_ssd_once_per_layer(cuda):
+    """SMOKE mamba2 prefill on the card: one SSD launch per layer, and the
+    logits match the same parameters' prefill on the CPU (the twin)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = replace(get_smoke_config("mamba2-1.3b"), dtype="float32",
+                  param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    before = sk.SSD_CHUNKS.launches
+    got = model.prefill(params, tokens)
+    torch.cuda.synchronize()
+    assert sk.SSD_CHUNKS.launches == before + cfg.num_layers
+    from repro_torch.serve.sharded_cache import _to_device
+    want = model.prefill(_to_device(params, "cpu"), tokens.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

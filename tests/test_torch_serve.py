@@ -61,6 +61,22 @@ def _drive(engine, schedule, logits_fn, commit_tokens=None):
     return record
 
 
+def assert_lockstep(record, ref_record):
+    """Same sampling masks at every tick, and at every sampled position the
+    reference's token unless its top two logits are an fp near-tie."""
+    assert len(record) == len(ref_record)
+    sampled = ties = 0
+    for (s, lg, _), (rs, rlg, rtok) in zip(record, ref_record):
+        np.testing.assert_array_equal(s, rs)
+        for b in np.where(s)[0]:
+            sampled += 1
+            if lg[b].argmax() != rtok[b]:
+                gap = rlg[b].max() - np.partition(rlg[b], -2)[-2]
+                assert gap < TIE_GAP, (b, gap)
+                ties += 1
+    assert sampled > 20 and ties <= 1
+
+
 @pytest.fixture(scope="module")
 def reference_run(ref):
     from repro.configs import ServeConfig as RServeConfig
@@ -92,17 +108,7 @@ def test_greedy_tokens_match_reference_engine(reference_run, n_pe, mode):
     record = _drive(engine, _schedule(cfg.vocab_size),
                     lambda x: x.numpy().astype(np.float32),
                     commit_tokens=[r[2] for r in ref_record])
-    assert len(record) == len(ref_record)
-    sampled = ties = 0
-    for (s, lg, _), (rs, rlg, rtok) in zip(record, ref_record):
-        np.testing.assert_array_equal(s, rs)
-        for b in np.where(s)[0]:
-            sampled += 1
-            if lg[b].argmax() != rtok[b]:
-                gap = rlg[b].max() - np.partition(rlg[b], -2)[-2]
-                assert gap < TIE_GAP, (b, gap)
-                ties += 1
-    assert sampled > 20 and ties <= 1
+    assert_lockstep(record, ref_record)
 
 
 @pytest.mark.parametrize("backend", ["dense", "ring"])
