@@ -135,6 +135,48 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
     return ms
 
 
+def demangled_body(name: str) -> str:
+    """``<identifier><template arguments>`` of a mangled kernel name: the
+    length-prefixed identifier that names a kernel, and what follows it
+    up to the return type."""
+    import re
+    found = []
+    for i in range(len(name)):
+        m = re.match(r"\d+", name[i:])
+        if not m:
+            continue
+        end = i + m.end()
+        stop = end + int(m.group())
+        ident = name[end:stop]
+        if "kernel" in ident and ident.isidentifier() \
+                and stop < len(name) and name[stop] in "IE":
+            rest = name[stop:]
+            found.append(ident + (rest[:rest.find("Ev") + 1]
+                                  if rest.startswith("I") else ""))
+    return min(found, key=len) if found else name[:60]
+
+
+def ptxas_summary(text: str):
+    """(body, "registers, static shared memory; spills") for every kernel
+    body ``nvcc -Xptxas -v`` compiled: the body is the mangled name cut to
+    its identifier and template arguments. Dynamic shared memory is set at
+    launch and is not in this log."""
+    import re
+    out, func, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            func = demangled_body(m.group(1))
+            spill = ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and func:
+            used = line.split("Used", 1)[1].strip()
+            out.append((func, f"Used {used}; {spill}"))
+            func = None
+    return out
+
+
 def bound(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
@@ -148,6 +190,17 @@ def nbytes(*ts) -> int:
 def max_err(got, want) -> float:
     return max(float((g.float() - w.float()).abs().max())
                for g, w in zip(got, want))
+
+
+def ratio_text(rec) -> str:
+    """Add ``of_bound`` (bound / kernel time) and ``vs_library`` (kernel
+    time / library time, where one PyTorch call computes the function) to
+    a kernel case record; the text for its log line."""
+    rec["of_bound"] = rec["bound_ms"] / rec["ms"]
+    lib = rec.get("library_ms")
+    rec["vs_library"] = rec["ms"] / lib if lib else None
+    vs = "n/a" if lib is None else f"{rec['vs_library']:.2f}x"
+    return f"; {rec['of_bound']:.1%} of bound, vs library {vs}"
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +339,7 @@ def check_flash(torch, fk, dev):
         log(f"[kernels] flash_carry {name}: max_abs_err={err:.3e} "
             f"(tol {tol}) kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"library {lib}")
+            f"library {lib}" + ratio_text(rec))
         out.append(rec)
     return out
 
@@ -346,7 +399,7 @@ def check_matmul(torch, mk, dev):
         log(f"[kernels] tile_matmul {name}: max_abs_err={err:.3e} (tol "
             f"{tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"bmm {rec['library_ms']:.4f} ms")
+            f"bmm {rec['library_ms']:.4f} ms" + ratio_text(rec))
         out.append(rec)
     return out
 
@@ -404,7 +457,7 @@ def check_conv(torch, ck, dev):
                 f"{tol:.3e}), F.conv2d err {lib_err:.3e} (tol {lib_tol:.3e})"
                 f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
                 f"ms, bound {b_ms:.4f} ms ({b_by}), F.conv2d "
-                f"{rec['library_ms']:.4f} ms")
+                f"{rec['library_ms']:.4f} ms" + ratio_text(rec))
             out.append(rec)
     return out
 
@@ -471,7 +524,7 @@ def check_fft(torch, ffk, fft, dev):
             log(f"[kernels] fft_stage {rec['case']}: max_abs_err={err:.3e} "
                 f"(tol {tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
                 f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"torch.fft {lib_txt}")
+                f"torch.fft {lib_txt}" + ratio_text(rec))
             out.append(rec)
     return out
 
@@ -557,7 +610,7 @@ def check_ssd(torch, sk, dev):
                 f"{b_ms:.4f} ms ({b_by}; at the reference kernel's work "
                 f"{rec['bound_reference_ms']:.4f}), library n/a, three "
                 f"products alone (torch.matmul fp32, yardstick) "
-                f"{rec['products_ms']:.4f} ms")
+                f"{rec['products_ms']:.4f} ms" + ratio_text(rec))
             out.append(rec)
             del x, dt, a, b, c, got, want, xf, bf, cf, m
     return out
@@ -1015,9 +1068,8 @@ def main() -> int:
     log(f"[build] {len(kernels.ALL)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for k in kernels.ALL:
-        for line in k.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {k.name}: {line.strip()}")
+        for func, info in ptxas_summary(k.ptxas_log):
+            log(f"[build] {k.name}: {func}: {info}")
 
     flash = check_flash(torch, fk, dev)
     mm = check_matmul(torch, mk, dev)
@@ -1073,6 +1125,7 @@ def main() -> int:
                 "ms": top["ms"], "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"], "primary_case": primary,
+                "of_bound": top["of_bound"], "vs_library": top["vs_library"],
                 "launches_per_call": per_call, "cases": recs}
 
     report = {"kernels": [

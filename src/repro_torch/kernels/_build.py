@@ -4,7 +4,9 @@ Each ``repro_torch/csrc/<name>.cu`` has a plain C interface and compiles on
 its own with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``build/<name>-<hash>.so`` at the repository root,
 at first use; the hash covers the source and the flags, so a changed source
-never loads a stale library. The library is loaded with ``ctypes``: a few
+never loads a stale library. ``nvcc``'s output (``-Xptxas -v``: registers,
+spills and static shared memory of every kernel body) is kept beside it as
+``build/<name>-<hash>.log``. The library is loaded with ``ctypes``: a few
 seconds of ``nvcc``, where ``torch.utils.cpp_extension`` spends minutes
 compiling PyTorch's headers.
 
@@ -82,12 +84,16 @@ class Kernel:
         if proc.returncode != 0:
             Path(tmp).unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
 
     def lib(self):
         """The loaded library, building it first if needed."""
         if self._lib is None:
             self.finish_build(self.start_build())
+            log = self.library_path().with_suffix(".log")
+            if not self.ptxas_log and log.exists():   # built by an earlier run
+                self.ptxas_log = log.read_text()
             lib = ctypes.CDLL(str(self.library_path()))
             for entry, argtypes in self.signatures.items():
                 fn = getattr(lib, entry)

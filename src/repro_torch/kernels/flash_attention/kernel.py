@@ -116,8 +116,10 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     if d % vn:
         raise ValueError(f"flash_carry: head_dim {d} is not a multiple of "
                          f"{vn}")
-    if q.stride(-1) != 1:
-        q = q.contiguous()
+    # the tensor-core body reads bf16 q as pairs: even strides, 4-byte start
+    if q.stride(-1) != 1 or (q.dtype == torch.bfloat16 and (
+            any(st % 2 for st in q.stride()[:3]) or q.data_ptr() % 4)):
+        q = q.clone(memory_format=torch.contiguous_format)
     if k.stride(-1) != 1 or k.stride() != v.stride() \
             or any(st % vn for st in k.stride()[:3]) \
             or k.data_ptr() % 16 or v.data_ptr() % 16:
@@ -140,6 +142,8 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     m = m.float().contiguous()
     l = l.float().contiguous()
     acc = acc.float().contiguous()
+    if acc.data_ptr() % 16:                 # read as 16-byte vectors
+        acc = acc.clone()
     m_o = torch.empty_like(m)
     l_o = torch.empty_like(l)
     o = torch.empty((bp, h, sq, d), dtype=out_dtype, device=dev)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import (
     Kernel,
@@ -24,6 +25,20 @@ TILE_MATMUL = Kernel("tile_matmul", {
     "tile_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 })
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K and N must be multiples of these for the kernel's body of each input type
+K_QUANTUM = {torch.float32: 1, torch.bfloat16: 8}
+N_QUANTUM = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def _pad_to(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def _aligned16(t):
+    """``t`` itself, or a copy when its data does not start on 16 bytes."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
 
 
 def matmul_plain(a, b, c=None, out_dtype=None):
@@ -56,15 +71,26 @@ def matmul_cuda(a, b, c=None, out_dtype=None):
                              f"{c.dtype} does not match {(p, m, n)}")
         c = c.contiguous()
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((p, m, n), dtype=out_dtype, device=a.device)
-    if out.numel() == 0:
-        return out
+    if p * m * n == 0:
+        return torch.empty((p, m, n), dtype=out_dtype, device=a.device)
+    # the wgmma body reads K and N in 16-byte chunks of bf16, the SGEMM body
+    # N in 16-byte chunks of fp32: pad what does not fill whole chunks
+    k_pad = _pad_to(k, K_QUANTUM[a.dtype])
+    n_pad = _pad_to(n, N_QUANTUM[a.dtype])
+    if k_pad != k:
+        a = F.pad(a, (0, k_pad - k))
+        b = F.pad(b, (0, 0, 0, k_pad - k))
+    if n_pad != n:
+        b = F.pad(b, (0, n_pad - n))
+        c = F.pad(c, (0, n_pad - n)) if c is not None else None
+    a, b, c = (_aligned16(x) for x in (a, b, c))
+    out = torch.empty((p, m, n_pad), dtype=out_dtype, device=a.device)
     err = TILE_MATMUL.lib().tile_matmul(
         a.data_ptr(), b.data_ptr(), c.data_ptr() if c is not None else None,
         out.data_ptr(),
-        p, m, n, k, DTYPE_CODES[a.dtype],
+        p, m, n_pad, k_pad, DTYPE_CODES[a.dtype],
         DTYPE_CODES[c.dtype] if c is not None else -1,
         DTYPE_CODES[out_dtype], stream_handle(a.device))
     TILE_MATMUL.check(err)
     TILE_MATMUL.launches += 1
-    return out
+    return out if n_pad == n else out[..., :n].contiguous()

@@ -5,8 +5,8 @@ It folds the middle dimensions into M, threads the optional carried
 accumulator into the kernel (the travelling C tile of reduce-scatter
 rings), and takes a batch of weights for the emulated ring: with
 ``w [P, K, N]`` every PE multiplies its own slice in one launch. The
-kernel masks ragged edges itself, so unlike the reference there is no
-fallback for shapes that do not tile.
+kernel masks ragged M itself and its wrapper pads K and N, so unlike the
+reference there is no fallback for shapes that do not tile.
 """
 from __future__ import annotations
 

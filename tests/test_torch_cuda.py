@@ -87,6 +87,163 @@ def test_cuda_tile_matmul_vs_twin(cuda, dtype, carry):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# the serving path's ring hops, qwen3-0.6b on 4 PEs at batch 8 (M = 512
+# rows per PE): (P, M, K, N)
+HOP_SHAPES = {"ffn_ag_hop": (4, 512, 1024, 768),
+              "qkv_q_hop": (4, 512, 1024, 512),
+              "ffn_rs_hop": (4, 512, 768, 1024)}
+
+
+def matmul_check(a, b, c, out_dtype, rel):
+    """Kernel against twin within ``rel`` of the output's largest value."""
+    got = mk.matmul_cuda(a, b, c, out_dtype)
+    want = mk.matmul_plain(a, b, c, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert got.is_contiguous()
+    tol = rel * max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("hop", list(HOP_SHAPES))
+def test_cuda_tile_matmul_bf16_hop_shapes(cuda, hop, carry):
+    """The wgmma body at the main path's shapes: one bf16 rounding (2^-8
+    relative) of fp32 sums taken in another order."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    p, m, k, n = HOP_SHAPES[hop]
+    bf = torch.bfloat16
+    a = torch.randn(p, m, k, generator=g, device=cuda).to(bf)
+    b = torch.randn(p, k, n, generator=g, device=cuda).to(bf)
+    c = torch.randn(p, m, n, generator=g, device=cuda).to(bf) if carry \
+        else None
+    matmul_check(a, b, c, bf, 2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tile_matmul_pads_what_the_body_cannot_take(cuda, dtype):
+    """K and N off the 16-byte quantum, operands starting off 16 bytes:
+    the wrapper pads or copies them, and the result is the twin's."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    p, m, k, n = 2, 77, 45, 130
+    flat = torch.randn(p * m * k + 1, generator=g, device=cuda).to(dtype)
+    a = flat[1:].view(p, m, k)                    # starts 2 or 4 bytes in
+    assert a.data_ptr() % 16
+    b = torch.randn(p, k, n, generator=g, device=cuda).to(dtype)
+    c = torch.randn(p, m, n, generator=g, device=cuda).to(dtype)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    matmul_check(a, b, c, dtype, rel)
+    matmul_check(a, b, None, dtype, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_matmul_fp32_cannon_tile(cuda):
+    """The SGEMM body at Cannon's card-scale tile (512^3) with an fp32
+    carry: exact fp32 FMAs, so only the order of the sums differs."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a, b, c = (torch.randn(4, 512, 512, generator=g, device=cuda)
+               for _ in range(3))
+    matmul_check(a, b, c, torch.float32, 1e-5)
+
+
+def prefill_hop_case(dev, peak, seed=0):
+    """qwen3's prefill hop per (row, KV head): G = 2, Sq = 64, T = 64,
+    D = 128; PE i's queries against PE i-1's keys, causal, so PE 0's rows
+    see a fully masked tile; every third row still at the sentinel. q is
+    scaled by ``peak`` (a peaked softmax), V and acc by 16 (|acc| >> 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bp, sq, h, kvh, hd = 8, 64, 4, 2, 128
+    bf = torch.bfloat16
+    q = (torch.randn(bp, sq, h, hd, generator=g, device=dev) * peak).to(bf)
+    k = torch.randn(bp, sq, kvh, hd, generator=g, device=dev).to(bf)
+    v = (torch.randn(bp, sq, kvh, hd, generator=g, device=dev) * 16).to(bf)
+    m = torch.randn(bp, h, sq, generator=g, device=dev)
+    m[::3] = -1e30
+    l = torch.rand(bp, h, sq, generator=g, device=dev) + 1
+    acc = torch.randn(bp, h, sq, hd, generator=g, device=dev)
+    pe = torch.arange(bp, device=dev) % 4
+    src = (pe - 1) % 4
+    big = torch.full((bp,), 2 ** 30, device=dev)
+    return (q, k, v, m, l, acc, pe * sq, src * sq, big, None)
+
+
+def acc_with_p_in_bf16(q, k, v, m, l, acc, q_off, k_off, klen, kv_row):
+    """The carried acc of a causal hop if P went through one bf16 rounding
+    before P @ V (what the kernel must not do)."""
+    bp, sq, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    gq = h // kvh
+    s = torch.einsum("bskgd,btkd->bkgst",
+                     q.float().reshape(bp, sq, kvh, gq, d), k.float())
+    s = s.reshape(bp, h, sq, t) / d ** 0.5
+    mask = fk.key_mask(q_off, k_off, klen, sq, t, causal=True, window=0)
+    s = torch.where(mask[:, None], s, torch.full_like(s, fk.NEG_INF))
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None]).bfloat16().float()
+    pv = torch.einsum("bkgst,btkd->bkgsd", p.reshape(bp, kvh, gq, sq, t),
+                      v.float()).reshape(bp, h, sq, d)
+    return acc * torch.exp(m - m_new)[..., None] + pv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peak", [1.0, 8.0])
+def test_cuda_flash_carry_prefill_hop_state(cuda, peak):
+    """The tensor-core body at qwen3's prefill-hop shape holds the carried
+    state within 2e-4 of its largest value, a bound that one bf16 rounding
+    of P would break (checked here on the same inputs)."""
+    args = prefill_hop_case(cuda, peak)
+    got = fk.flash_carry_cuda(*args, causal=True)
+    want = fk.flash_carry_plain(*args, causal=True)
+    torch.cuda.synchronize()
+    tol = 2e-4 * max(1.0, float(want[2].abs().max()))
+    rounded = float((acc_with_p_in_bf16(*args) - want[2]).abs().max())
+    assert rounded > tol, (rounded, tol)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        err = float((x - y).abs().max())
+        assert err <= 2e-4 * max(1.0, float(y.abs().max())), err
+    out = fk.flash_carry_cuda(*args, causal=True, normalize=True,
+                              out_dtype=torch.bfloat16)
+    ref = fk.flash_carry_plain(*args, causal=True, normalize=True,
+                               out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out[2].dtype == torch.bfloat16
+    torch.testing.assert_close(out[2].float(), ref[2].float(), rtol=2e-2,
+                               atol=2e-2 * float(ref[2].float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_carry_decode_hop(cuda, q_dtype):
+    """The key-split body at a decode hop: one query per row read against
+    a bf16 cache view through ``kv_row``, with per-row key bounds (none,
+    some, all of the shard) and rows at the sentinel."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    bp, h, kvh, hd, t, n_pe = 8, 16, 8, 128, 256, 4
+    kc = torch.randn(bp * n_pe, t, kvh, hd, generator=g,
+                     device=cuda).bfloat16()
+    vc = torch.randn(bp * n_pe, t, kvh, hd, generator=g,
+                     device=cuda).bfloat16()
+    q = torch.randn(bp, 1, h, hd, generator=g, device=cuda).to(q_dtype)
+    m = torch.randn(bp, h, 1, generator=g, device=cuda)
+    m[::2] = -1e30
+    l = torch.rand(bp, h, 1, generator=g, device=cuda) + 1
+    acc = torch.randn(bp, h, 1, hd, generator=g, device=cuda)
+    kv_row = torch.randperm(bp * n_pe, generator=g, device=cuda)[:bp]
+    k_off = torch.tensor([0, 256, 0, 512, 256, 0, 768, 0], device=cuda)
+    klen = torch.tensor([0, 300, 256, 520, 256, 1, 1024, 97], device=cuda)
+    args = (q, kc, vc, m, l, acc, 0 * klen, k_off, klen, kv_row)
+    got = fk.flash_carry_cuda(*args, causal=False)
+    want = fk.flash_carry_plain(*args, causal=False)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        err = float((x - y).abs().max())
+        assert err <= 2e-4 * max(1.0, float(y.abs().max())), err
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_count_launches_and_reject_mismatch(cuda):
     from repro_torch.kernels.systolic_matmul.ops import tile_matmul
