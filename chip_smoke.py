@@ -465,7 +465,9 @@ def check_conv(torch, ck, dev):
 def check_fft(torch, ffk, fft, dev):
     """One pipeline tick (4 PEs at stages 0..3, stage 0 loading
     digit-reversed) at the paper's batch of 64 and at 4096, and the
-    four-launch fft256 of a whole batch against ``torch.fft.fft``."""
+    one-launch fft256 of a whole batch (``fft_full``, bit for bit against
+    its twin) against ``torch.fft.fft`` and against the four per-stage
+    launches it replaces, timed in the same run."""
     g = torch.Generator(device=dev).manual_seed(3)
     n = 256
     tw = fft.twiddle_table(n, dev)
@@ -477,10 +479,10 @@ def check_fft(torch, ffk, fft, dev):
         return torch.complex(torch.randn(*shape, generator=g, device=dev),
                              torch.randn(*shape, generator=g, device=dev))
 
-    def fft256_plain(x):
+    def fft256_stages(x):
         y = x.reshape(1, -1, n)
         for s in range(4):
-            y = ffk.stage_plain(y, stage_vecs[s], tw, reverse=(s == 0))
+            y = ffk.stage_cuda(y, stage_vecs[s], tw, reverse=(s == 0))
         return y.reshape(x.shape)
 
     out = []
@@ -493,18 +495,23 @@ def check_fft(torch, ffk, fft, dev):
                 plain = lambda x=x: ffk.stage_plain(x, ticks, tw,  # noqa
                                                     reverse=True)
                 lib_call, flops = None, 34 * (n // 4) * 4 * b
+                body, tol = "fft_stage_kernel", None
             else:
                 x = crandn(b, n)
                 call = lambda x=x: fft.fft256_radix4(x, n)  # noqa: E731
-                plain = lambda x=x: fft256_plain(x)  # noqa: E731
+                plain = lambda x=x: ffk.fft_full_plain(x, tw)  # noqa: E731
                 lib_call = lambda x=x: torch.fft.fft(x, dim=-1)  # noqa
                 flops = 4 * 34 * (n // 4) * b
-            got, want = call(), plain()
+                body, tol = "fft_full_kernel", 0.0      # bit for bit
+            before = ffk.FFT_STAGE.launches
+            got = call()
+            launched = ffk.FFT_STAGE.launches - before
+            want = plain()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            scale = max(1.0, float(want.abs().max()))
-            tol = 1e-5 * scale      # same roundings as the twin
-            ok = err <= tol
+            if tol is None:
+                tol = 1e-5 * max(1.0, float(want.abs().max()))
+            ok = err <= tol and launched == 1
             lib_err = None
             if lib_call is not None:
                 lib = lib_call()
@@ -513,18 +520,24 @@ def check_fft(torch, ffk, fft, dev):
             b_ms, b_by = bound(nbytes(x, tw, got), flops, "fp32")
             rec = {"case": f"{kind}_B{b}", "max_abs_err": err, "tol": tol,
                    "library_rel_err": lib_err, "ok": ok,
-                   "ms": time_ms(call, only="fft_stage_kernel"),
+                   "ms": time_ms(call, only=body),
                    "plain_ms": time_ms(plain), "bound_ms": b_ms,
                    "bound_by": b_by,
                    "library_ms": time_ms(lib_call) if lib_call else None,
-                   "launches_per_call": 1 if kind == "tick" else 4,
+                   "launches_per_call": launched,
                    "shape": {"x": list(x.shape), "dtype": "complex64"}}
+            extra = ""
+            if kind == "fft256":
+                rec["stages_ms"] = time_ms(lambda x=x: fft256_stages(x),
+                                           only="fft_stage_kernel")
+                extra = f", four stage launches {rec['stages_ms']:.4f} ms"
             lib_txt = "n/a" if lib_call is None else \
                 f"{rec['library_ms']:.4f} ms (rel err {lib_err:.2e})"
             log(f"[kernels] fft_stage {rec['case']}: max_abs_err={err:.3e} "
-                f"(tol {tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
-                f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"torch.fft {lib_txt}" + ratio_text(rec))
+                f"(tol {tol:.3e}) kernel {rec['ms']:.4f} ms ({body}, "
+                f"{launched} launch){extra}, plain {rec['plain_ms']:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}), torch.fft {lib_txt}"
+                + ratio_text(rec))
             out.append(rec)
     return out
 
@@ -578,7 +591,10 @@ def check_ssd(torch, sk, dev):
             tol = 1e-4
             finite = all(bool(torch.isfinite(u).all()) for u in got)
             flops, flops_ref = ssd_flops(bsz, h, grp, nc, l, p, n)
-            b_ms, b_by = bound(nbytes(x, dt, a, b, c, *got), flops, "fp32")
+            # the bf16 body runs on the tensor cores, the fp32 one on the
+            # CUDA cores: each at the peak of the units it can use
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            b_ms, b_by = bound(nbytes(x, dt, a, b, c, *got), flops, kind)
             # yardstick: the three batched products alone, per head, fp32
             rows = sk.group_rows(bh, h, grp, dev)
             xf, bf, cf = x.float(), b.float()[rows], c.float()[rows]
@@ -598,7 +614,8 @@ def check_ssd(torch, sk, dev):
                        x, dt, a, b, c, **opts), iters=5),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "bound_reference_ms": bound(nbytes(x, dt, a, b, c, *got),
-                                               flops_ref, "fp32")[0],
+                                               flops_ref, kind)[0],
+                   "bound_kind": kind,
                    "flops": flops, "flops_reference": flops_ref,
                    "library_ms": None,
                    "products_ms": time_ms(products, iters=5),
@@ -607,7 +624,8 @@ def check_ssd(torch, sk, dev):
             log(f"[kernels] ssd_chunks {name}: rel errs (y, states, expcum) "
                 f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol}) kernel "
                 f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by}; at the reference kernel's work "
+                f"{b_ms:.4f} ms ({b_by} at the {kind} peak; at the "
+                f"reference kernel's work "
                 f"{rec['bound_reference_ms']:.4f}), library n/a, three "
                 f"products alone (torch.matmul fp32, yardstick) "
                 f"{rec['products_ms']:.4f} ms" + ratio_text(rec))
@@ -872,7 +890,7 @@ def dsp_suite(torch, kernels, dev):
                 size == "card" and n_chains == 1)
             del want
         del xs
-    # pipelined_fft: M + 3 stage launches per call (baseline: fft256, 4)
+    # pipelined_fft: M + 3 stage launches per call (baseline: one fft256)
     n = CFFT.fft_points
     for size, (m, reps) in {"mempool": (8, 20),
                             "card": (CARD["fft_m"], 3)}.items():
@@ -885,7 +903,7 @@ def dsp_suite(torch, kernels, dev):
             f"{size} {m}x{CFFT.fft_batch}x{n} P=4",
             lambda mode, xs=xs: fft.pipelined_fft(xs, 4, mode, n),
             lambda y, want=want: within(1e-3, rel(y, want)),
-            lambda mode, m=m: {fftk: 4 if mode == "baseline" else m + 3},
+            lambda mode, m=m: {fftk: 1 if mode == "baseline" else m + 3},
             m * CFFT.fft_batch * 8 * n * np.log2(n), reps, size == "card")
         del xs, want
     # Cannon on a 16x16 fold: 16 tile_matmul launches per call

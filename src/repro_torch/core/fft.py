@@ -7,10 +7,11 @@ pipelined PE groups of 64; twiddles are stage-constant and preloaded
 the shared-memory path; inter-stage data flows through systolic links.
 
 Here ``fft256_radix4`` is the shared-memory form: the digit-reversed load
-and four stage launches over the whole batch. ``pipelined_fft`` streams
-microbatches through 4 stage-owning PEs over open-chain hops
-(``core/pipeline``), one launch per tick for all PEs. Both run the stage
-kernel of ``kernels/fft`` with the twiddle table of all stages.
+and all stages over the whole batch in one ``fft_full`` launch.
+``pipelined_fft`` streams microbatches through 4 stage-owning PEs over
+open-chain hops (``core/pipeline``), one ``fft_stage`` launch per tick for
+all PEs; its ``baseline`` mode is the shared-memory form. Both kernels of
+``kernels/fft`` take the twiddle table of all stages.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipeline import index_vector, pipelined
+from repro_torch.kernels.fft.kernel import FULL_MAX_N, fft_full
 from repro_torch.kernels.fft.kernel import fft_stage as stage_kernel
 
 
@@ -77,8 +79,12 @@ def twiddle_table(n: int, device) -> torch.Tensor:
 
 def fft256_radix4(x, n: int = 256):
     """Batched n-point FFT via the radix-4 DIT stages. x: [..., n]
-    complex64. The first of the D stage launches loads digit-reversed."""
+    complex64. One ``fft_full`` launch for n <= 4096 (``FULL_MAX_N``, a
+    row in shared memory); a larger n runs D stage launches, the first
+    loading digit-reversed."""
     tw = twiddle_table(n, x.device)
+    if n <= FULL_MAX_N:
+        return fft_full(x.reshape(-1, n), tw).reshape(x.shape)
     y = x.reshape(1, -1, n)
     for s in range(n_stages_of(n)):
         y = stage_kernel(y, index_vector((s,), x.device), tw,
@@ -101,11 +107,15 @@ def pipelined_fft(xs, n_pe: int, mode: str = "qlr", n: int = 256):
 
     ``n_pe`` must equal the stage count (4 for n = 256): with more PEs the
     reference clips the stage index and applies the last stage again,
-    which is no FFT, so this raises instead."""
+    which is no FFT, so this raises instead. ``baseline`` (no hops, the
+    shared-memory form) is ``fft256_radix4`` over all microbatches: one
+    launch instead of one per stage, with the same values."""
     d = n_stages_of(n)
     if n_pe != d:
         raise ValueError(f"pipelined_fft runs one stage per PE: n_pe must "
                          f"be {d} for {n} points, got {n_pe}")
+    if mode == "baseline":
+        return fft256_radix4(xs, n)
     tw = twiddle_table(n, xs.device)
 
     def stage_fn(_params, x, stage_idx):

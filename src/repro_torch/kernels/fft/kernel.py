@@ -1,6 +1,9 @@
-"""Radix-4 DIT FFT stage over row blocks, each at a stage of its own: the
-hand-written CUDA kernel (``csrc/fft_stage.cu``) and its plain PyTorch
-twin.
+"""Radix-4 DIT FFT on the card: the hand-written CUDA kernels
+(``csrc/fft_stage.cu``) and their plain PyTorch twins.
+
+``fft_stage`` runs one stage over row blocks, each at a stage of its own
+(one pipeline tick); ``fft_full`` runs the whole transform of every row in
+one launch (the shared-memory fft256).
 
 Both take ``x [P, B, n]`` complex64, ``stage [P]`` int32 with values in
 ``[0, D)`` (D = log4 n), and the twiddle table ``tw [D, n]`` complex64 whose
@@ -12,6 +15,13 @@ load). A stage outside ``[0, D)`` yields NaN. ``fft_stage`` takes the twin
 for tensors on the CPU and launches the kernel (or raises) otherwise. The
 reference kernel's split real/imaginary planes stay in the parity tests;
 here complex values are interleaved.
+
+``fft_full`` takes ``x [R, n]`` and the same table and returns the FFT of
+each row: the digit-reversed load and all D stages, with rows resident in
+shared memory. Its twin is D ``stage_plain`` calls, and the kernel equals
+it bit for bit. The kernel takes ``4 <= n <= FULL_MAX_N`` (a row must fit
+in shared memory); larger transforms run stage by stage
+(``core/fft.fft256_radix4``).
 """
 from __future__ import annotations
 
@@ -29,7 +39,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FFT_STAGE = Kernel("fft_stage", {
     # x, stage, tw, out, P, B, n, digits, reverse, stream
     "fft_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, tw, out, rows, n, digits, stream
+    "fft_full": [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
 })
+FULL_MAX_N = 4096               # a 32 KB row of shared memory per block
 
 
 def digit_reverse(n: int, digits: int, device) -> torch.Tensor:
@@ -115,3 +128,55 @@ def fft_stage(x, stage, tw, reverse: bool = False):
     if x.device.type == "cpu":
         return stage_plain(x, stage, tw, reverse)
     return stage_cuda(x, stage, tw, reverse)
+
+
+def _check_full(x, tw) -> int:
+    if x.dim() != 2 or x.dtype != torch.complex64 \
+            or tw.dtype != torch.complex64:
+        raise TypeError(f"fft_full: x must be [R, n] complex64 and tw "
+                        f"complex64, got {tuple(x.shape)} {x.dtype}, "
+                        f"{tw.dtype}")
+    n, digits = x.shape[1], tw.shape[0]
+    if tuple(tw.shape) != (digits, n) or n != 4 ** digits:
+        raise ValueError(f"fft_full: tw {tuple(tw.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    return digits
+
+
+def fft_full_plain(x, tw):
+    """The whole transform as the kernel computes it: D ``stage_plain``
+    calls, the first loading digit-reversed."""
+    digits = _check_full(x, tw)
+    y = x.reshape(1, *x.shape)
+    for s in range(digits):
+        stage = torch.full((1,), s, dtype=torch.int32, device=x.device)
+        y = stage_plain(y, stage, tw, reverse=(s == 0))
+    return y[0]
+
+
+def fft_full_cuda(x, tw):
+    """One launch of the CUDA kernel over all rows."""
+    require_cuda_tensors("fft_full", x, tw)
+    digits = _check_full(x, tw)
+    rows, n = x.shape
+    if n > FULL_MAX_N:
+        raise ValueError(f"fft_full: {n} points > {FULL_MAX_N} do not fit "
+                         f"in shared memory; run the stages one by one")
+    x = x.contiguous()
+    tw = tw.contiguous()
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    err = FFT_STAGE.lib().fft_full(x.data_ptr(), tw.data_ptr(),
+                                   out.data_ptr(), rows, n, digits,
+                                   stream_handle(x.device))
+    FFT_STAGE.check(err)
+    FFT_STAGE.launches += 1
+    return out
+
+
+def fft_full(x, tw):
+    """Plain twin for CPU tensors, the CUDA kernel otherwise."""
+    if x.device.type == "cpu":
+        return fft_full_plain(x, tw)
+    return fft_full_cuda(x, tw)

@@ -1,6 +1,6 @@
 """The reference's kernel-level FFT contract ``fft256(x [B, n])``: the
-digit-reversed load and the four stage launches of
-``core/fft.fft256_radix4``."""
+digit-reversed load and the four stages of ``core/fft.fft256_radix4``, one
+``fft_full`` launch."""
 from __future__ import annotations
 
 from repro_torch.core.fft import fft256_radix4

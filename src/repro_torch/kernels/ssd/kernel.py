@@ -18,6 +18,11 @@ which would amplify an order's rounding). The causal decay is a select,
 never a product with a mask: above the diagonal ``exp(cum[t] - cum[s])``
 overflows at realistic ``dt``. ``ssd_chunks`` takes the twin for tensors
 on the CPU and launches the kernel (or raises) otherwise.
+
+The kernel has two bodies behind one launch: bf16 inputs run on the tensor
+cores (``mma.sync``, with M = (C B^T) * decay * dt and x * w each split into
+two bf16 halves, so that the fp32 twin's 1e-4 bound holds), fp32 inputs on
+the CUDA cores.
 """
 from __future__ import annotations
 

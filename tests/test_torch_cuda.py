@@ -12,7 +12,10 @@ FFT-stage kernels round every product and sum as their twins do, so they
 are held to 1e-5 (fp32) and one bf16 rounding (1e-2). The SSD chunk
 kernel is held to 1e-4 relative to its largest output, the reference's
 bound for its Pallas kernel against the chunked scan; bf16 inputs are
-widened to fp32 alike in kernel and twin, so the bound holds for them too.
+widened to fp32 alike in kernel and twin (the tensor-core body's products
+of bf16 values are exact, and it splits M and x * w into two bf16 halves),
+so the bound holds for them too. The one-launch FFT equals its twin bit
+for bit.
 """
 from __future__ import annotations
 
@@ -323,6 +326,23 @@ def test_cuda_fft_stage_vs_twin(cuda, reverse):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(4096, 256), (64, 256), (3, 16),
+                                    (5, 1024)])
+def test_cuda_fft_full_vs_twin(cuda, rows, n):
+    """The one-launch transform equals D stage twins bit for bit."""
+    from repro_torch.core.fft import twiddle_table
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.complex(torch.randn(rows, n, generator=g, device=cuda),
+                      torch.randn(rows, n, generator=g, device=cuda))
+    tw = twiddle_table(n, cuda)
+    before = ffk.FFT_STAGE.launches
+    got = ffk.fft_full_cuda(x, tw)
+    torch.cuda.synchronize()
+    assert ffk.FFT_STAGE.launches == before + 1
+    assert torch.equal(got, ffk.fft_full_plain(x, tw))
+
+
+@pytest.mark.cuda
 def test_cuda_dsp_paths_count_launches_and_agree(cuda):
     """Each DSP path launches its kernels the expected number of times,
     and every link mode gives the same values as the plain reference."""
@@ -344,7 +364,7 @@ def test_cuda_dsp_paths_count_launches_and_agree(cuda):
         y_mm = cm.systolic_cannon(a, b, 4, mode)
         torch.cuda.synchronize()
         assert ck.CONV2D_3X3.launches == c0 + 1
-        assert ffk.FFT_STAGE.launches == f0 + (4 if mode == "baseline"
+        assert ffk.FFT_STAGE.launches == f0 + (1 if mode == "baseline"
                                                else 3 + 3)
         assert mk.TILE_MATMUL.launches == m0 + 4
         outs[mode] = (y_conv, y_fft, y_mm)
@@ -365,6 +385,7 @@ SSD_CASES = {
     "groups2": (2, 4, 2, 3, 64, 64, 128, None, 0.0),
     "ragged": (2, 3, 1, 2, 100, 24, 40, None, 0.0),
     "small": (2, 4, 1, 3, 16, 16, 16, None, 0.0),
+    "zamba2": (1, 4, 1, 2, 256, 64, 64, None, 0.0),     # zamba2-1.2b's P, N
     # cum reaches about -1300: exp(cum) underflows, and above the diagonal
     # exp(cum[t] - cum[s]) overflows to inf
     "overflow": (1, 2, 1, 2, 256, 64, 128, -4.0, 1.0),
@@ -399,6 +420,23 @@ def test_cuda_ssd_chunks_vs_twin(cuda, dtype, case):
     for x, y in zip(got, want):
         assert x.dtype == torch.float32 and x.shape == y.shape
         assert bool(torch.isfinite(x).all())
+        tol = 1e-4 * max(1.0, float(y.abs().max()))
+        torch.testing.assert_close(x, y, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,p,n", [(64, 24, 40), (100, 50, 72), (77, 13, 37),
+                                   (48, 64, 100), (256, 8, 128)])
+def test_cuda_ssd_chunks_bf16_ragged_tiles(cuda, l, p, n):
+    """The tensor-core body zero-pads P and N to multiples of 16 (and L to
+    the 64-row tile); an odd P or N also takes its element-wise loads."""
+    args = ssd_inputs(cuda, torch.bfloat16, 2, 2, 1, 2, l, p, n, None, 0.0,
+                      seed=l + p + n)
+    got = sk.ssd_chunks_cuda(*args, nheads=2, ngroups=1)
+    want = sk.ssd_chunks_plain(*args, nheads=2, ngroups=1)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and bool(torch.isfinite(x).all())
         tol = 1e-4 * max(1.0, float(y.abs().max()))
         torch.testing.assert_close(x, y, rtol=0, atol=tol)
 

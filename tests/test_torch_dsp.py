@@ -243,6 +243,49 @@ def test_fft256_vs_reference(ref, batch):
     assert _rel_err(got, np.fft.fft(x, axis=-1)) < 1e-5
 
 
+@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+def test_fft_full_plain_is_the_stages_bit_for_bit(n):
+    """The one-launch transform's twin equals D single-stage calls, the
+    first loading digit-reversed, bit for bit."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(_crand(rng, 6, n))
+    tw = fft.twiddle_table(n, "cpu")
+    want = x[None]
+    for s in range(fft.n_stages_of(n)):
+        want = fk.stage_plain(want, torch.tensor([s], dtype=torch.int32), tw,
+                              reverse=(s == 0))
+    assert torch.equal(fk.fft_full_plain(x, tw), want[0])
+    assert torch.equal(fk.fft_full(x, tw), want[0])     # CPU: the twin
+
+
+def test_fft256_radix4_goes_through_fft_full(ref, monkeypatch):
+    """fft256 is one fft_full call, and still matches the reference's
+    fft256 at test_fft256_vs_reference's bound."""
+    from repro.core.fft import fft256_radix4 as rfft256
+    calls = []
+
+    def counted(x, tw):
+        calls.append(tuple(x.shape))
+        return fk.fft_full(x, tw)
+    monkeypatch.setattr(fft, "fft_full", counted)
+    x = _crand(np.random.default_rng(11), 2, 8, 256)
+    got = fft.fft256_radix4(torch.from_numpy(x))
+    assert calls == [(16, 256)]
+    assert got.shape == x.shape
+    _close(got, jax.jit(rfft256)(jnp.asarray(x)), 1e-3)
+    assert _rel_err(got, np.fft.fft(x, axis=-1)) < 1e-5
+
+
+def test_fft_above_the_shared_memory_row_runs_stage_by_stage(monkeypatch):
+    """n > FULL_MAX_N does not fit one block's shared memory: those
+    transforms keep one launch per stage."""
+    n = 4 * fk.FULL_MAX_N
+    monkeypatch.setattr(fft, "fft_full", None)          # must not be called
+    x = _crand(np.random.default_rng(12), 2, n)
+    got = fft.fft256_radix4(torch.from_numpy(x), n)
+    assert _rel_err(got, np.fft.fft(x, axis=-1)) < 1e-5
+
+
 def test_fft256_impulse(ref):
     from repro.kernels.fft.ref import fft_ref
     x = np.zeros((4, 256), np.complex64)
@@ -263,6 +306,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fk.stage_cuda(xc, torch.zeros(1, dtype=torch.int32),
                       fft.twiddle_table(256, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        fk.fft_full_cuda(xc[0], fft.twiddle_table(256, "cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -120,6 +120,70 @@ def test_ssd_chunks_overflow_case_is_finite(ref):
         _close(x_, y, TOL)
 
 
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    """t = hi + lo in two bf16 halves, rounded as the kernel's split_bf16:
+    hi the nearest bf16, lo the nearest bf16 of the fp32 remainder."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _tensor_core_scheme(x, dt, a, b, c, split_m: bool = True, tile=64):
+    """The bf16 body of ``csrc/ssd_chunks.cu`` emulated in fp32 (G = 1):
+    bf16 C and B, S = C B^T with fp32 sums, M = S * decay * dt in fp32
+    (below the diagonal tile, (S * exp(cum[t] - cum[e])) * (exp(cum[e] -
+    cum[s]) * dt[s]) with e the last row of s's tile), M split into hi + lo
+    (or, with ``split_m`` off, rounded once to bf16), x in bf16, y = M_hi x
+    + M_lo x and states = (x w)_hi^T B + (x w)_lo^T B with fp32 sums."""
+    l = x.shape[2]
+    dtf = dt[..., 0]
+    cum = torch.cumsum((dtf * a.reshape(-1, 1, 1)).double(), -1).float()
+    mask = torch.ones(l, l, dtype=torch.bool).tril()
+    decay = torch.where(mask, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                        0.0)
+    s = torch.matmul(c, b.transpose(-1, -2))                 # [1, NC, L, L]
+    m = s * decay * dtf[..., None, :]
+    pos = torch.arange(l)
+    last = (pos | (tile - 1)).clamp(max=l - 1)               # e of column s
+    row_f = torch.exp(cum[..., :, None] - cum[..., last][..., None, :])
+    col_f = torch.exp(cum[..., last] - cum) * dtf
+    below = (pos[:, None] // tile) > (pos[None, :] // tile)
+    m = torch.where(below, s * row_f * col_f[..., None, :], m)
+    if split_m:
+        m_hi, m_lo = _split(m)
+        y = torch.matmul(m_hi, x) + torch.matmul(m_lo, x)
+    else:
+        y = torch.matmul(_bf16(m), x)
+    w = torch.exp(cum[..., -1:] - cum) * dtf
+    xw_hi, xw_lo = _split(x * w[..., None])
+    states = torch.matmul(xw_hi.transpose(-1, -2), b) \
+        + torch.matmul(xw_lo.transpose(-1, -2), b)
+    return y, states
+
+
+def test_ssd_tensor_core_scheme_needs_the_split():
+    """At the prefill shape (L=256, P=64, N=128) with the overflow case's
+    a = -4: the bf16 tensor-core scheme with M split into two bf16 halves
+    stays within the reference's 1e-4 * |out|max of the fp32 twin; one
+    bf16 rounding of M does not. This guards the kernel's design."""
+    h = 4
+    x, dt, _, b, c = map(_t, _chunk_inputs(2, 1, h, 1, 2, 256, 64, 128,
+                                           dt_shift=1.0))
+    a = torch.full((h, 1, 1, 1), -4.0)
+    x, b, c = _bf16(x), _bf16(b), _bf16(c)
+    y_want, s_want, _ = sk.ssd_chunks_plain(
+        x.bfloat16(), dt, a, b.bfloat16(), c.bfloat16(), nheads=h, ngroups=1)
+    y, states = _tensor_core_scheme(x, dt, a, b, c)
+    _close(y, y_want, TOL)
+    _close(states, s_want, TOL)
+    y_once, _ = _tensor_core_scheme(x, dt, a, b, c, split_m=False)
+    scale = max(1.0, float(y_want.abs().max()))
+    assert float((y_once - y_want).abs().max()) > TOL * scale
+
+
 def _scan_inputs(seed, bsz, s, h, p, g, n):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((bsz, s, h, p)).astype(np.float32)
