@@ -404,10 +404,16 @@ def check_matmul(torch, mk, dev):
     return out
 
 
-# conv2d: (P, rows per PE, W) — the paper's 256x256 image on 256 PEs, the
-# card-scale 8192x8192 image on 256 PEs, and ragged widths of both
-CONV_SHAPES = {"paper": (256, 1, 256), "paper_ragged": (256, 1, 250),
-               "card": (256, 32, 8192), "card_ragged": (256, 32, 8190)}
+# conv2d: (P, rows per PE, W) and the types — the paper's 256x256 image on
+# 256 PEs, the card-scale 8192x8192 image on 256 PEs, ragged widths of both
+# (the generic body), a conv chain tick (8 PEs of 512 rows) and the
+# baseline's whole image (P = 1)
+CONV_SHAPES = {"paper": ((256, 1, 256), ("fp32", "bf16")),
+               "paper_ragged": ((256, 1, 250), ("fp32", "bf16")),
+               "card": ((256, 32, 8192), ("fp32", "bf16")),
+               "card_ragged": ((256, 32, 8190), ("fp32", "bf16")),
+               "chain_tick": ((8, 512, 8192), ("fp32",)),
+               "baseline": ((1, 8192, 8192), ("fp32",))}
 
 
 def conv_halos(torch, x):
@@ -417,16 +423,43 @@ def conv_halos(torch, x):
     return torch.cat([z, x[:-1, -1:]]), torch.cat([x[1:, :1], z])
 
 
+def conv_body(ck, x, top, bot):
+    """(kernel body, rows per strip) the wrapper takes for these tensors
+    (its output is a fresh allocation, 16-byte aligned)."""
+    strip = ck.conv_strip(tuple(x.shape), x.element_size(),
+                          [t.data_ptr() for t in (x, top, bot)
+                           if t is not None])
+    return ("conv2d_3x3_kernel_v16" if strip else "conv2d_3x3_kernel"), strip
+
+
+def conv_generic(torch, ck, x, top, bot, k, out):
+    """One launch of the kernel's generic body (the earlier one-column
+    design) on the same inputs, through the C entry with strip 0: the
+    earlier time beside the new one in the same run. Not counted as a
+    launch of the main path."""
+    from repro_torch.kernels._build import stream_handle
+    ptr = [t.data_ptr() if t is not None else None for t in (x, top, bot)]
+    ck.CONV2D_3X3.check(ck.CONV2D_3X3.lib().conv2d_3x3(
+        *ptr, k.float().contiguous().data_ptr(), out.data_ptr(),
+        *x.shape, ck.DTYPE_CODES[x.dtype], 0, stream_handle(x.device)))
+
+
 def check_conv(torch, ck, dev):
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(2)
     f32 = torch.float32
+    ptxas = ptxas_summary(ck.CONV2D_3X3.ptxas_log)
     out = []
-    for shape, (p, r, w) in CONV_SHAPES.items():
-        for dtype in (f32, torch.bfloat16):
+    for shape, ((p, r, w), kinds) in CONV_SHAPES.items():
+        for kind in kinds:
+            dtype = f32 if kind == "fp32" else torch.bfloat16
             x = torch.randn(p, r, w, generator=g, device=dev).to(dtype)
             k = torch.randn(3, 3, generator=g, device=dev).to(dtype)
             top, bot = conv_halos(torch, x)
+            body, strip = conv_body(ck, x, top, bot)
+            regs = [info for func, info in ptxas
+                    if func.split("I")[0] == body
+                    and ("bfloat16" in func) == (dtype != f32)]
             got = ck.conv_cuda(x, top, bot, k)
             want = ck.conv_plain(x, top, bot, k)
             image, wk = x.reshape(1, 1, p * r, w), k.reshape(1, 1, 3, 3)
@@ -436,29 +469,40 @@ def check_conv(torch, ck, dev):
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             scale = max(1.0, float(want.float().abs().max()))
-            # kernel and twin round every product and sum alike; fp32
-            # leaves room for a reordering, bf16 for one bf16 rounding
-            tol = (1e-5 if dtype == f32 else 2 ** -7) * scale
+            # kernel and twin round every product and sum alike, in the
+            # same order: fp32 bit for bit, bf16 within one bf16 rounding
+            tol = 0.0 if dtype == f32 else 2 ** -7 * scale
             lib_err = float((lib.float() - want.float()).abs().max())
             lib_tol = (1e-4 if dtype == f32 else 5e-2) * scale
             b_ms, b_by = bound(nbytes(x, top, bot, k, got), 18 * x.numel(),
                                "fp32")
-            name = f"{shape}_{'fp32' if dtype == f32 else 'bf16'}"
+            name = f"{shape}_{kind}"
             rec = {"case": name, "max_abs_err": err, "tol": tol,
                    "library_err": lib_err, "library_tol": lib_tol,
                    "ok": err <= tol and lib_err <= lib_tol,
+                   "body": body, "strip": strip,
+                   "ptxas": regs[0] if regs else None,
                    "ms": time_ms(lambda: ck.conv_cuda(x, top, bot, k),
                                  only="conv2d_3x3_kernel"),
                    "plain_ms": time_ms(lambda: ck.conv_plain(x, top, bot, k)),
                    "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": time_ms(lib_call),
+                   # a yardstick of what the card's memory system gives:
+                   # PyTorch's copy of x, the same bytes less the halos
+                   "copy_ms": time_ms(lambda: got.copy_(x)),
+                   "generic_ms": time_ms(lambda: conv_generic(
+                       torch, ck, x, top, bot, k, got),
+                       only="conv2d_3x3_kernel"),
                    "shape": {"x": [p, r, w], "dtype": str(dtype)}}
-            log(f"[kernels] conv2d_3x3 {name}: max_abs_err={err:.3e} (tol "
-                f"{tol:.3e}), F.conv2d err {lib_err:.3e} (tol {lib_tol:.3e})"
-                f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-                f"ms, bound {b_ms:.4f} ms ({b_by}), F.conv2d "
-                f"{rec['library_ms']:.4f} ms" + ratio_text(rec))
+            log(f"[kernels] conv2d_3x3 {name}: {body} (strip {strip}; "
+                f"{rec['ptxas']}) max_abs_err={err:.3e} (tol {tol:.3e}), "
+                f"F.conv2d err {lib_err:.3e} (tol {lib_tol:.3e}) kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), F.conv2d "
+                f"{rec['library_ms']:.4f} ms, copy_ {rec['copy_ms']:.4f} ms, "
+                f"generic body {rec['generic_ms']:.4f} ms" + ratio_text(rec))
             out.append(rec)
+            del x, top, bot, got, want, lib, image
     return out
 
 

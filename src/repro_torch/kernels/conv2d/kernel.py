@@ -8,6 +8,11 @@ The accumulator is fp32 and sums the nine products in the reference
 kernel's order (dr outer, dc inner); the output takes ``x``'s type.
 ``conv2d_3x3`` takes the twin for tensors on the CPU and launches the
 kernel (or raises) otherwise.
+
+The kernel has two bodies; :func:`conv_strip` picks one per call from the
+shape, the type and the data pointers: the 16-byte body for rows that start
+on 16-byte boundaries, the generic scalar body for every other width or
+alignment. Either is one launch.
 """
 from __future__ import annotations
 
@@ -24,10 +29,31 @@ from repro_torch.kernels._build import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 CONV2D_3X3 = Kernel("conv2d_3x3", {
-    # x, top, bot, w, out, P, R, W, dtype, stream
-    "conv2d_3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, top, bot, w, out, P, R, W, dtype, strip (0: generic body), stream
+    "conv2d_3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 })
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+VEC_BYTES = 16        # one lane's columns in the 16-byte body
+WHOLE_BLOCK = 64      # a PE block of up to this many rows is one strip
+STRIP = 32            # rows per strip of a taller block
+
+
+def conv_strip(shape, itemsize: int, addresses) -> int:
+    """Rows per strip of the 16-byte body, or 0 for the generic body.
+
+    ``shape`` is x's (P, R, W) and ``addresses`` the data pointers of x,
+    out and the halos that are given. The 16-byte body needs every row to
+    start on a 16-byte boundary: W a multiple of 16 / itemsize and every
+    pointer 16-byte aligned. It reads each row once plus two halo rows per
+    strip, so a PE block of at most ``WHOLE_BLOCK`` rows is one strip; a
+    taller one is cut into strips of ``STRIP`` rows, which leaves enough
+    warps (one per strip and 512-byte column band) to fill the card at the
+    DSP paths' shapes."""
+    _, r, w = shape
+    if (w * itemsize) % VEC_BYTES or any(a % VEC_BYTES for a in addresses):
+        return 0
+    return r if r <= WHOLE_BLOCK else STRIP
 
 
 def conv_plain(x, top, bot, weight):
@@ -67,11 +93,13 @@ def conv_cuda(x, top, bot, weight):
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (x, top, bot, out)]
+    strip = conv_strip((p, r, w), x.element_size(),
+                       [a for a in ptrs if a is not None])
     err = CONV2D_3X3.lib().conv2d_3x3(
-        x.data_ptr(), top.data_ptr() if top is not None else None,
-        bot.data_ptr() if bot is not None else None, w32.data_ptr(),
-        out.data_ptr(), p, r, w, DTYPE_CODES[x.dtype],
-        stream_handle(x.device))
+        *ptrs[:3], w32.data_ptr(), ptrs[3], p, r, w, DTYPE_CODES[x.dtype],
+        strip, stream_handle(x.device))
     CONV2D_3X3.check(err)
     CONV2D_3X3.launches += 1
     return out

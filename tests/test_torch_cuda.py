@@ -9,13 +9,13 @@ machine with only PyTorch and CUDA::
 Tolerances: fp32 results differ from the twin only in the order of fp32
 sums (1e-4); bf16 results add one bf16 rounding (2e-2). The conv2d and
 FFT-stage kernels round every product and sum as their twins do, so they
-are held to 1e-5 (fp32) and one bf16 rounding (1e-2). The SSD chunk
-kernel is held to 1e-4 relative to its largest output, the reference's
-bound for its Pallas kernel against the chunked scan; bf16 inputs are
-widened to fp32 alike in kernel and twin (the tensor-core body's products
-of bf16 values are exact, and it splits M and x * w into two bf16 halves),
-so the bound holds for them too. The one-launch FFT equals its twin bit
-for bit.
+are held to 1e-5 (fp32; conv2d, in the twin's order, bit for bit) and one
+bf16 rounding (1e-2). The SSD chunk kernel is held to 1e-4 relative to its
+largest output, the reference's bound for its Pallas kernel against the
+chunked scan; bf16 inputs are widened to fp32 alike in kernel and twin (the
+tensor-core body's products of bf16 values are exact, and it splits M and
+x * w into two bf16 halves), so the bound holds for them too. The
+one-launch FFT equals its twin bit for bit.
 """
 from __future__ import annotations
 
@@ -286,26 +286,51 @@ def test_cuda_backward_matches_plain_autograd(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p,r,w,halos", [
-    (4, 3, 300, True),        # ragged width, rows under one strip
-    (2, 40, 257, True),       # several row strips, one column past a block
-    (3, 1, 31, False),        # narrower than a warp, zero halos
-    (1, 64, 64, False),       # the whole-image form
+@pytest.mark.parametrize("p,r,w,halos,shift", [
+    (4, 3, 300, "both", 0),   # ragged width in bf16, rows under one strip
+    (2, 40, 257, "both", 0),  # generic body: one column past a block
+    (3, 1, 31, "none", 0),    # narrower than a warp, zero halos
+    (1, 64, 64, "none", 0),   # the whole-image form
+    (2, 70, 1024, "both", 0),  # 16-byte body, three strips, a short last
+    (3, 33, 1030, "both", 0),  # ragged under a vector multiple: generic
+    (2, 17, 1032, "both", 0),  # over 1024 by one bf16 vector: 16-byte body
+    (2, 17, 1028, "both", 0),  # a vector multiple in fp32 only
+    (2, 9, 1024, "top", 0),   # top halo given, bottom zero
+    (2, 9, 1024, "bot", 0),   # bottom halo given, top zero
+    (2, 3, 1030, "both", "pe"),  # x = buf[1:]: off 16-byte boundaries
+    (2, 5, 1024, "both", 2),  # x 2 elements into its storage: generic
 ])
-def test_cuda_conv2d_vs_twin(cuda, dtype, p, r, w, halos):
+def test_cuda_conv2d_vs_twin(cuda, dtype, p, r, w, halos, shift):
+    """Every body against the twin: fp32 bit for bit, since kernel and twin
+    round every product and sum alike in the same order; bf16 within one
+    bf16 rounding. ``shift`` moves x in its storage (by one PE block for
+    "pe", else by that many elements) so that its data pointer is not
+    16-byte aligned."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(p, r, w, generator=g, device=cuda).to(dtype)
+    if shift == "pe":
+        x = torch.randn(p + 1, r, w, generator=g, device=cuda).to(dtype)[1:]
+    else:
+        flat = torch.randn(shift + p * r * w, generator=g,
+                           device=cuda).to(dtype)
+        x = flat[shift:].view(p, r, w)
+    assert x.is_contiguous()
+    assert (x.data_ptr() % 16 == 0) == (shift == 0)
     top = bot = None
-    if halos:
+    if halos in ("both", "top"):
         top = torch.randn(p, 1, w, generator=g, device=cuda).to(dtype)
+    if halos in ("both", "bot"):
         bot = torch.randn(p, 1, w, generator=g, device=cuda).to(dtype)
     k = torch.randn(3, 3, generator=g, device=cuda).to(dtype)
+    before = ck.CONV2D_3X3.launches
     got = ck.conv_cuda(x, top, bot, k)
     want = ck.conv_plain(x, top, bot, k)
     torch.cuda.synchronize()
-    assert got.dtype == dtype
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert got.dtype == dtype and ck.CONV2D_3X3.launches == before + 1
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
 
 
 @pytest.mark.cuda

@@ -176,18 +176,30 @@ def test_halo_traffic_and_bubble_match_reference(ref):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("h,w,bm", [(256, 256, 128), (128, 64, 32),
-                                    (64, 256, 64)])
+@pytest.mark.parametrize("h,w,bm", [
+    (256, 256, 128), (128, 64, 32), (64, 256, 64),
+    # a vector multiple (4 fp32 or 8 bf16 columns a lane in the 16-byte
+    # body) +- 1, where the kernel leaves that body for the generic one
+    (64, 127, 32), (64, 129, 32), (48, 255, 16), (48, 257, 16),
+    # h not a multiple of bm: the reference kernel cannot tile it
+    (50, 127, 32), (50, 129, 32), (70, 1023, 64), (70, 1025, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_conv2d_twin_vs_reference(ref, h, w, bm, dtype):
     """Port ``ops.conv2d`` (plain twin) == the reference Pallas kernel in
-    interpret mode == the reference's jnp oracle on fp32 inputs."""
+    interpret mode (where bm tiles h; else the reference's per-PE
+    ``conv2d_3x3_local`` under vmap, on the zero-extended image) == the
+    reference's jnp oracle on fp32 inputs."""
+    from repro.core.halo import conv2d_3x3_local as rconv_local
     from repro.core.halo import conv2d_ref as rconv_ref
     from repro.kernels.conv2d.kernel import conv2d_3x3 as rconv
     rng = np.random.default_rng(h + w)
     x, k = _rand(rng, h, w), _rand(rng, 3, 3)
     xj, kj = jnp.asarray(x).astype(dtype), jnp.asarray(k).astype(dtype)
-    want = rconv(xj, kj, bm=bm, interpret=True)
+    if h % bm == 0:
+        want = rconv(xj, kj, bm=bm, interpret=True)
+    else:
+        want = _vmap(rconv_local, jnp.pad(xj, ((1, 1), (0, 0)))[None], kj,
+                     in_axes=(0, None))[0]
     xt = to_torch(x).to(TORCH_DTYPES[dtype])
     got = conv_ops.conv2d(xt, to_torch(k).to(TORCH_DTYPES[dtype]))
     assert got.dtype == xt.dtype and got.shape == (h, w)
