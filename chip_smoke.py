@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: build, check and time every kernel
 on the card, serve qwen3-0.6b at full width on the emulated ring, run the
-paper's DSP suite on an emulated 256-PE cluster, and prefill and serve
-mamba2-1.3b at full width and depth.
+paper's DSP suite on an emulated 256-PE cluster, prefill and serve
+mamba2-1.3b at full width and depth, and train qwen3-0.6b at full width
+and depth on the ring.
 
     python3 chip_smoke.py
 
@@ -13,10 +14,12 @@ non-zero before the result lines are printed:
 1. device and build: the card's name and power limit, all five kernels
    built in parallel;
 2. each kernel against its plain PyTorch twin on the card, at the main
-   paths' shapes, with the stated tolerances; each timed (device time
-   under ``torch.profiler``) beside its twin, its bound and, where one
-   PyTorch call computes the same function, that call (used here as a
-   yardstick only);
+   paths' shapes (the training hops of phase 9 included), with the
+   stated tolerances; each timed (device time under ``torch.profiler``)
+   beside its twin, its bound and, where one PyTorch call computes the
+   same function, that call (used here as a yardstick only); at the
+   training hops also the device time of the backward (the twin's
+   gradient, as the reference's custom VJPs take it);
 3. serving: ``ServeEngine`` over ``RingShardedBackend(n_pe=4, mode="qlr")``,
    whose ring hops run the kernels, qwen3-0.6b at full width in bf16 with
    random weights from a seed, 8 requests plus 4 admitted mid-run; every kernel's
@@ -42,7 +45,20 @@ non-zero before the result lines are printed:
 8. Mamba2 serving: ``ServeEngine`` over ``DecodeBackend``, full width and
    depth, bf16, ``prefill_chunk=256``: the model has no block prefill, so
    prompts stream through the decode step (the SSD kernel is not on this
-   path); 8 requests plus 2 admitted mid-run must all complete.
+   path); 8 requests plus 2 admitted mid-run must all complete;
+9. training: ``make_train_step`` on qwen3-0.6b at full width and depth,
+   bf16 with fp32 master weights, remat "full", AdamW at a constant 3e-4,
+   ring of 4 PEs in qlr (every QKV/FFN hop launches the tile matmul, every
+   attention hop the flash kernel, again in the remat recompute), 6 steps
+   of 8 x 1024 tokens from ``SyntheticLM(seed=0)``: every loss finite and
+   the last below the first; each step launches each kernel as often as
+   reckoned from the code; median step time, tokens/s, ``train_mfu``
+   (model FLOPs over step time x 989 TFLOP/s) and peak memory; one step
+   profiled (idle share, top kernels and ops, forward kernels against the
+   twin backwards). Then parity: 4 layers at full width, fp32, B=2,
+   S=512: the loss and every gradient of the ring path in sw, xqueue and
+   qlr against the dense path within 1e-4 and 1e-3, the modes bit for
+   bit.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -68,6 +84,11 @@ N_PE = 4
 BATCH = 8
 MAX_SEQ = 1024
 CHUNK = 256
+TRAIN_BATCH = 8                    # phase 9: 8 x 1024 tokens a step
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 6                    # the first is warm-up
+# profiler ranges around the twin backwards of the two autograd.Functions
+BACKWARD_LABELS = ("flash_carry_backward", "tile_matmul_backward")
 
 
 def log(msg: str) -> None:
@@ -81,13 +102,18 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _kernel_rows(prof, ops: bool = False):
-    """(name, device ms, count) of every device kernel in a profile; with
-    ``ops``, of every CPU op instead, by the device time of the kernels it
-    launched itself (not its children's)."""
+def _kernel_rows(averages, ops: bool = False):
+    """(name, device ms, count) of every device kernel in a profile's
+    ``key_averages()``; with ``ops``, of every CPU op instead, by the
+    device time of the kernels it launched itself (not its children's).
+    A ``record_function`` range
+    (``BACKWARD_LABELS``) also appears on the device's timeline; it is no
+    kernel, and skipped (``label_ms`` reads it)."""
     rows = []
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA") == ops:
+    for evt in averages:
+        if str(getattr(evt, "device_type", "")).endswith("CUDA") == ops \
+                or getattr(evt, "is_user_annotation", False) \
+                or evt.key in BACKWARD_LABELS:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -118,7 +144,7 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy = sum(ms for name, ms, _ in _kernel_rows(prof)
+        busy = sum(ms for name, ms, _ in _kernel_rows(prof.key_averages())
                    if only is None or only in name)
         if busy > 0:
             return busy / iters
@@ -267,7 +293,41 @@ def flash_cases(torch, fk, dev):
               0 * dpe, dpe * s_loc, pos[cache_row] + 1,
               cache_row * N_PE + dpe),
         opts=dict(causal=False, window=0, normalize=False))
+    # training (phase 9): B=8, S=1024 on the ring of 4, so 256 queries and
+    # keys a hop; hop 1 as above, and the normalized form against SDPA
+    t_rows, t_l = N_PE * TRAIN_BATCH, TRAIN_SEQ // N_PE
+    t_pe = torch.arange(N_PE, device=dev).repeat_interleave(TRAIN_BATCH)
+    qt = torch.randn(t_rows, t_l, h, hd, generator=g, device=dev).to(bf)
+    kt = torch.randn(t_rows, t_l, kvh, hd, generator=g, device=dev).to(bf)
+    vt = torch.randn(t_rows, t_l, kvh, hd, generator=g, device=dev).to(bf)
+    mt, lt, acct = state(t_rows, t_l, fresh=False)
+    mt[::3] = -1e30
+    big_t = torch.tensor(2 ** 30, device=dev).expand(t_rows)
+    cases["train_hop"] = dict(
+        args=(qt, kt, vt, mt, lt, acct, t_pe * t_l,
+              (t_pe - 1) % N_PE * t_l, big_t, None),
+        opts=dict(causal=True, window=0, normalize=False))
+    cases["train_normalized"] = dict(
+        args=(qt, kt, vt, *state(t_rows, t_l, fresh=True), 0 * t_pe,
+              0 * t_pe, big_t, None),
+        opts=dict(causal=True, window=0, normalize=True, out_dtype=bf))
     return cases
+
+
+def backward_ms(torch, apply, args, diff):
+    """Device time of the backward of one ``apply(*args)`` (an
+    ``autograd.Function``: the twin's gradient) in the inputs at the
+    positions ``diff``, for random output gradients."""
+    args = list(args)
+    leaves = []
+    for i in diff:
+        args[i] = args[i].detach().requires_grad_(True)
+        leaves.append(args[i])
+    outs = apply(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    ups = [torch.randn(o.shape, device=o.device).to(o.dtype) for o in outs]
+    return time_ms(lambda: torch.autograd.grad(outs, leaves, ups,
+                                               retain_graph=True), iters=5)
 
 
 def flash_bound(torch, fk, args, opts):
@@ -327,19 +387,26 @@ def check_flash(torch, fk, dev):
                               .abs().max()) <= 2e-2
             lib = time_ms(call)
         b_ms, b_by = flash_bound(torch, fk, args, opts)
+        bwd = None
+        if name == "train_hop":
+            bwd = backward_ms(
+                torch, lambda *a: fk._FlashCarry.apply(
+                    *a, opts["causal"], opts["window"], False, None),
+                args, range(6))
         rec = {"case": name, "max_abs_err": err, "tol": tol, "ok": ok,
                "ms": time_ms(lambda: fk.flash_carry_cuda(*args, **opts),
                              only="flash_carry_kernel"),
                "plain_ms": time_ms(lambda: fk.flash_carry_plain(*args,
                                                                  **opts)),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+               "twin_backward_ms": bwd,
                "shape": {"q": list(args[0].shape), "k": list(args[1].shape),
                          "dtype_q": str(args[0].dtype),
                          "dtype_kv": str(args[1].dtype)}}
         log(f"[kernels] flash_carry {name}: max_abs_err={err:.3e} "
             f"(tol {tol}) kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"library {lib}" + ratio_text(rec))
+            f"library {lib}, twin backward {bwd}" + ratio_text(rec))
         out.append(rec)
     return out
 
@@ -348,6 +415,7 @@ def check_matmul(torch, mk, dev):
     g = torch.Generator(device=dev).manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
     d, f, m = 1024, 3072 // N_PE, BATCH * CHUNK // N_PE    # M = 512 per PE
+    tm = TRAIN_BATCH * TRAIN_SEQ // N_PE
 
     def rnd(*shape, dtype=bf):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
@@ -369,6 +437,11 @@ def check_matmul(torch, mk, dev):
         "cannon_card_fp32_carry": (rnd(256, 512, 512, dtype=f32),
                                    rnd(256, 512, 512, dtype=f32),
                                    rnd(256, 512, 512, dtype=f32), f32),
+        # training (phase 9), M = 8 x 1024 / 4 per PE: the FFN AG hop and
+        # the RS hop with its bf16 travelling accumulator
+        "train_ffn_ag_hop": (rnd(N_PE, tm, d), rnd(N_PE, d, f), None, bf),
+        "train_ffn_rs_carry_hop": (rnd(N_PE, tm, f), rnd(N_PE, f, d),
+                                   rnd(N_PE, tm, d), bf),
     }
     out = []
     for name, (a, b, c, odt) in cases.items():
@@ -387,8 +460,14 @@ def check_matmul(torch, mk, dev):
         flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
         kind = "bf16" if a.dtype == bf else "fp32"
         b_ms, b_by = bound(nbytes(a, b, c, got), flops, kind)
+        bwd = None
+        if name.startswith("train"):
+            from repro_torch.kernels.systolic_matmul import ops as mm_ops
+            bwd = backward_ms(torch, mm_ops._TileMatmul.apply,
+                              (a, b, c, odt), (0, 1) + ((2,) if c is not None
+                                                        else ()))
         rec = {"case": name, "max_abs_err": err, "tol": tol,
-               "ok": err <= tol,
+               "ok": err <= tol, "twin_backward_ms": bwd,
                "ms": time_ms(lambda: mk.matmul_cuda(a, b, c, odt),
                              only="tile_matmul_kernel"),
                "plain_ms": time_ms(lambda: mk.matmul_plain(a, b, c, odt)),
@@ -399,7 +478,8 @@ def check_matmul(torch, mk, dev):
         log(f"[kernels] tile_matmul {name}: max_abs_err={err:.3e} (tol "
             f"{tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"bmm {rec['library_ms']:.4f} ms" + ratio_text(rec))
+            f"bmm {rec['library_ms']:.4f} ms, twin backward {bwd}"
+            + ratio_text(rec))
         out.append(rec)
     return out
 
@@ -763,13 +843,27 @@ def serve_full_width(torch, kernels, dev):
     return result
 
 
-def profile(torch, fn, top: int = 6) -> dict:
+def label_ms(prof, label: str) -> float:
+    """Device time of the kernels launched inside every host range named
+    ``label`` (a ``record_function`` label), children included."""
+    total = 0.0
+    for evt in prof.events():
+        if evt.name == label and not str(
+                getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = getattr(evt, "device_time_total", None)
+            total += us if us is not None else evt.cuda_time_total
+    return total / 1e3
+
+
+def profile(torch, fn, top: int = 6, labels=(), warm: bool = True) -> dict:
     """Device time by kernel and by the aten op that launched it for one
     call under ``torch.profiler``, and the device's idle share of the
     call's wall time (one stream, so kernel times add up to the busy
-    time)."""
+    time); with ``labels``, the device time under each of those
+    ``record_function`` ranges. ``warm=False`` when ``fn`` already ran."""
     from torch.profiler import ProfilerActivity
-    fn()                                         # warm
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -777,7 +871,8 @@ def profile(torch, fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = _kernel_rows(prof)
+    averages = prof.key_averages()
+    rows = _kernel_rows(averages)
     busy_ms = sum(r[1] for r in rows)
     if busy_ms == 0:
         return {"wall_ms": wall_ms, "device": "not measured"}
@@ -786,7 +881,12 @@ def profile(torch, fn, top: int = 6) -> dict:
            "top": [{"kernel": k[:80], "ms": ms, "count": n}
                    for k, ms, n in rows[:top]],
            "top_ops": [{"op": k[:60], "ms": ms, "count": n}
-                       for k, ms, n in _kernel_rows(prof, ops=True)[:top]]}
+                       for k, ms, n in _kernel_rows(averages,
+                                                    ops=True)[:top]],
+           "kernel_ms": {name: sum(ms for k, ms, _ in rows if name in k)
+                         for name in ("flash_carry_kernel",
+                                      "tile_matmul_kernel")},
+           "label_ms": {label: label_ms(prof, label) for label in labels}}
     log(f"[profile] {json.dumps(out)}")
     return out
 
@@ -1101,6 +1201,152 @@ def mamba_serve(torch, kernels, sk, dev):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+
+def train_flops(cfg, n_nonembed: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (forward and backward, no
+    recomputation): 6 per parameter and token outside the embedding, the
+    tied LM head's 6*D*V per token, and causal attention's 6*L*H*hd*S per
+    token (12*L*H*hd*S for full attention, halved)."""
+    hd = cfg.resolved_head_dim
+    return tokens * (6 * n_nonembed + 6 * cfg.d_model * cfg.vocab_size
+                     + 6 * cfg.num_layers * cfg.num_heads * hd * seq)
+
+
+def train_full_width(torch, kernels, dev):
+    """qwen3-0.6b at full width and depth, bf16 with fp32 master weights,
+    remat "full", on the ring of 4 in qlr: TRAIN_STEPS AdamW steps of
+    8 x 1024 tokens from ``DataLoader(SyntheticLM(seed=0))``."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+
+    cfg = replace(get_config("qwen3-0.6b"), systolic_mode="qlr",
+                  remat="full")
+    tcfg = TrainConfig(warmup_steps=0, schedule="constant",
+                       learning_rate=3e-4)
+    state = step_lib.init_state(cfg, tcfg, 0, dev)
+    train_step = step_lib.make_train_step(cfg, tcfg, N_PE)
+    loader = DataLoader(SyntheticLM(cfg.vocab_size, seed=tcfg.seed),
+                        TRAIN_BATCH, TRAIN_SEQ)
+    n_params = sum(t.numel() for t in opt.tree_leaves(state["params"]))
+    n_nonembed = n_params - state["params"]["embed"]["table"].numel()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, n_nonembed, tokens, TRAIN_SEQ)
+    # launches per step, reckoned from the code: per layer the QKV ring
+    # (N_PE hops x 3 sinks), the FFN AG ring (N_PE x 2) and RS ring (N_PE)
+    # launch the tile matmul, ring attention the flash hop N_PE times; the
+    # "full" remat recomputes every block once in the backward
+    expect = {"flash_carry": 2 * cfg.num_layers * N_PE,
+              "tile_matmul": 2 * cfg.num_layers * 6 * N_PE}
+
+    def batch():
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in next(loader).items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    losses, step_s, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        b = batch()
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        per_step.append({k.name: k.launches - before[k.name]
+                         for k in kernels})
+    launches = {k.name: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {TRAIN_STEPS} steps in {sum(step_s):.1f} s")
+
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    for i, got in enumerate(per_step):
+        assert got == expect, f"step {i}: launches {got}, expected {expect}"
+
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = train_step(holder["state"], batch())
+
+    t0 = time.perf_counter()
+    breakdown = profile(torch, one_step, top=8, warm=False,
+                        labels=BACKWARD_LABELS)
+    log(f"[train] profiled step and its analysis "
+        f"{time.perf_counter() - t0:.1f} s")
+    loader.close()
+    steady = sorted(step_s[1:])
+    median_s = steady[len(steady) // 2]
+    result = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "tokens_per_step": tokens, "losses": losses,
+              "step_ms": [t * 1e3 for t in step_s],
+              "median_step_ms": median_s * 1e3,
+              "tokens_per_s": tokens / median_s,
+              "model_flops": flops,
+              "train_mfu": flops / (median_s * PEAK_FLOPS["bf16"]),
+              "peak_mem_gb": peak_gb, "params": n_params,
+              "launches": launches, "launches_per_step": per_step[-1],
+              "expected_launches_per_step": expect,
+              "breakdown": breakdown}
+    log(f"[train] {json.dumps(result)}")
+    return result
+
+
+def train_parity(torch, dev):
+    """4 layers of qwen3-0.6b at full width, fp32, B=2, S=512: the loss and
+    every gradient of the ring path (kernels) in sw, xqueue and qlr against
+    the dense path (no kernel), within 1e-4 and 1e-3
+    (``tests/multidev/check_systolic_model.py``); the modes agree bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+
+    cfg = replace(get_config("qwen3-0.6b"), num_layers=4, dtype="float32",
+                  param_dtype="float32")
+    params = build_model(cfg).init(seed=2, device=dev)
+    raw = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 513))
+    batch = {"tokens": torch.as_tensor(raw[:, :-1], device=dev),
+             "targets": torch.as_tensor(raw[:, 1:], device=dev)}
+
+    def run(mode, n_pe):
+        model = build_model(replace(cfg, systolic_mode=mode), n_pe=n_pe)
+        loss, _, grads = step_lib.value_and_grad(model, params, batch)
+        return loss, opt.tree_leaves(grads)
+
+    base_loss, base_grads = run("baseline", 0)
+    out, runs = {}, {}
+    for mode in ("sw", "xqueue", "qlr"):
+        loss, grads = runs[mode] = run(mode, N_PE)
+        dl = abs(float(loss) - float(base_loss))
+        dg = max(float((a - b).abs().max())
+                 for a, b in zip(grads, base_grads))
+        out[mode] = {"dl": dl, "dg": dg}
+        log(f"[train-parity] {mode}: loss {float(loss):.6f} (dense "
+            f"{float(base_loss):.6f}), dl={dl:.3e} (tol 1e-4), "
+            f"dg={dg:.3e} (tol 1e-3)")
+        assert dl < 1e-4 and dg < 1e-3, (mode, dl, dg)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+    ref_loss, ref_grads = runs["qlr"]
+    for mode in ("sw", "xqueue"):
+        loss, grads = runs[mode]
+        same = bool(torch.equal(loss, ref_loss)) and all(
+            torch.equal(a, b) for a, b in zip(grads, ref_grads))
+        out[mode]["bit_identical_to_qlr"] = same
+        assert same, f"{mode} differs from qlr"
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1164,12 +1410,21 @@ def main() -> int:
     mserve = mamba_serve(torch, kernels.ALL, sk, dev)
     log(f"[mamba] phases 6-8 {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = train_full_width(torch, (fk.FLASH_CARRY, mk.TILE_MATMUL), dev)
+    t1 = time.perf_counter()
+    tparity = train_parity(torch, dev)
+    log(f"[train-parity] {time.perf_counter() - t1:.1f} s")
+    log(f"[train] phase 9 {time.perf_counter() - t0:.1f} s")
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
                    "dsp": dsp_launches[kern.name],
                    "mamba_prefill": prefill["launches"][kern.name],
-                   "mamba_serve": mserve["launches"][kern.name]}
+                   "mamba_serve": mserve["launches"][kern.name],
+                   "train": train["launches"].get(kern.name, 0)}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -1179,6 +1434,8 @@ def main() -> int:
         if prefill["launches_per_call"][kern.name]:
             per_call["mamba_prefill"] = \
                 prefill["launches_per_call"][kern.name]
+        if train["launches_per_step"].get(kern.name):
+            per_call["train_step"] = train["launches_per_step"][kern.name]
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path.values()),
@@ -1204,7 +1461,8 @@ def main() -> int:
         entry(ffk.FFT_STAGE, "src/repro_torch/csrc/fft_stage.cu",
               "src/repro/kernels/fft/kernel.py:58", ffts, "fft256_B4096"),
     ], "serve": served, "dsp": dsp, "mamba_prefill": prefill,
-        "mamba_parity": parity, "mamba_serve": mserve}
+        "mamba_parity": parity, "mamba_serve": mserve, "train": train,
+        "train_parity": tparity}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,15 @@
 from __future__ import annotations
 
 from repro_torch.configs import mamba2_1p3b, qwen3_0p6b
-from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.configs.base import (
+    ModelConfig,
+    ServeConfig,
+    TrainConfig,
+    apply_overrides,
+)
 
-__all__ = ["ARCHS", "ModelConfig", "ServeConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "ModelConfig", "ServeConfig", "TrainConfig",
+           "apply_overrides", "get_config", "get_smoke_config"]
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0p6b,

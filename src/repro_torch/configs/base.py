@@ -1,14 +1,15 @@
 """Configuration dataclasses of the port.
 
-The fields the ported slices read (dense serving, Mamba2), with the
-reference's names and defaults (``repro/configs/base.py``), so a
+The fields the ported slices read (dense serving and training, Mamba2),
+with the reference's names and defaults (``repro/configs/base.py``), so a
 configuration reads the same in both packages. Fields of families the port
 does not cover yet (MoE, MLA, hybrid, enc-dec, VLM) are left out until
 their slice lands.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -64,11 +65,37 @@ class ModelConfig:
     # Schedule over the ring: "ring" | "snake_fold", optionally ":RxC".
     systolic_topology: str = "ring"
 
+    # activation recomputation of each block in the training backward
+    remat: str = "full"            # none | full | selective
+
     @property
     def resolved_head_dim(self) -> int:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"          # cosine | linear | constant
+    microbatches: int = 1             # gradient accumulation
+    grad_compression: str = "none"    # none | bf16 | fp8sim
+    use_master_weights: bool = True
+    seed: int = 0
+    checkpoint_every: int = 500
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    keep_checkpoints: int = 3
+    straggler_deadline_s: float = 0.0  # 0 = watchdog disabled
+    log_every: int = 10
 
 
 @dataclass(frozen=True)
@@ -82,3 +109,31 @@ class ServeConfig:
     eos_token: int = -1       # slot retires when it samples this (< 0 = off)
     prefill_chunk: int = 0    # block-prefill up to this many prompt tokens
                               # at admission (0 = stream everything)
+
+
+# ---------------------------------------------------------------------------
+# CLI overrides: --set a.b=c
+# ---------------------------------------------------------------------------
+
+def _coerce(value: str, target: Any) -> Any:
+    if isinstance(target, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(target, int):
+        return int(value)
+    if isinstance(target, float):
+        return float(value)
+    return value
+
+
+def apply_overrides(cfg: Any, overrides: list[str]) -> Any:
+    """Apply ``field=value`` overrides to a (frozen) dataclass."""
+    updates: dict[str, Any] = {}
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override must be key=value, got {item!r}")
+        key, value = item.split("=", 1)
+        key = key.strip()
+        if not hasattr(cfg, key):
+            raise KeyError(f"{type(cfg).__name__} has no field {key!r}")
+        updates[key] = _coerce(value, getattr(cfg, key))
+    return replace(cfg, **updates)

@@ -16,7 +16,6 @@ along the rows and B tiles up along the columns.
 """
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import torch
@@ -24,11 +23,12 @@ import torch.nn.functional as F
 
 from repro_torch.core import queues
 from repro_torch.core import topology as topo_lib
+from repro_torch.core.queues import table_cache
 from repro_torch.core.topology import Topology, ring, torus_shift
 from repro_torch.kernels.systolic_matmul.ops import tile_matmul
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def _source_table(topo: Topology, device) -> torch.Tensor:
     """[n, n] long: entry (d, t) = origin shard PE d holds at consume t.
     Cached per device: a host-to-device copy would stall the stream."""
@@ -38,7 +38,7 @@ def _source_table(topo: Topology, device) -> torch.Tensor:
                            device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def _dest_table(topo: Topology, device) -> torch.Tensor:
     """[n, n] long ``topology.dest_table``, cached per device."""
     return torch.as_tensor(topo_lib.dest_table(topo), dtype=torch.long,
@@ -150,7 +150,7 @@ def cannon_topologies(axis: str, rows: int,
     return left, up
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def _rot_masks(times: tuple, n: int, device) -> torch.Tensor:
     """[n-1, P] bool: entry (i, d) is True while PE d still rotates at
     masked hop i (i < times[d]). Cached per device."""
@@ -169,7 +169,7 @@ def _masked_rot(x, topo: Topology, times: tuple, n: int, mode: str = "qlr"):
     return x
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache(maxsize=16)
 def _cannon_sources(n: int, preskewed: bool, device):
     """([n, P], [n, P]) long: the PEs whose A and B tiles PE (r, c) reads
     at step t, k = (r + c + t) mod n, in the baseline's shared-memory

@@ -15,12 +15,11 @@ all PEs; its ``baseline`` mode is the shared-memory form. Both kernels of
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from repro_torch.core.pipeline import index_vector, pipelined
+from repro_torch.core.queues import table_cache
 from repro_torch.kernels.fft.kernel import FULL_MAX_N, fft_full
 from repro_torch.kernels.fft.kernel import fft_stage as stage_kernel
 
@@ -68,7 +67,7 @@ def n_stages_of(n: int) -> int:
     return stages
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache(maxsize=16)
 def twiddle_table(n: int, device) -> torch.Tensor:
     """[D, n] complex64: row s holds stage s's twiddles. Cached per device:
     the stage-stationary operand is loaded once."""

@@ -14,12 +14,12 @@ chain (``bubble_fraction``).
 """
 from __future__ import annotations
 
-import functools
 from typing import Callable
 
 import torch
 
 from repro_torch.core import queues
+from repro_torch.core.queues import table_cache
 from repro_torch.core.topology import chains
 
 
@@ -28,7 +28,7 @@ def bubble_fraction(n_stages: int, n_microbatches: int) -> float:
     return (n_stages - 1) / (n_stages - 1 + max(n_microbatches, 1))
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def index_vector(values: tuple, device) -> torch.Tensor:
     """An int32 index vector, cached per device: a host-to-device copy per
     tick would stall the stream."""

@@ -20,7 +20,8 @@ The link modes are orders of operations, as in the reference:
 
 The reference pins the xqueue/sw order with optimization barriers; eager
 PyTorch already runs operations in program order, so no barrier is needed.
-Modes change scheduling, never values: all three give identical results.
+Modes change scheduling, never values: all three give identical results,
+gradients included (``_Fork``).
 """
 from __future__ import annotations
 
@@ -34,7 +35,23 @@ from repro_torch.core.topology import Topology
 MODES = ("sw", "xqueue", "qlr")
 
 
-@functools.lru_cache(maxsize=64)
+def table_cache(maxsize: int):
+    """``functools.lru_cache`` for builders of constant tensors (index
+    tables, twiddles), which build them outside inference mode: a table
+    first built while serving (``torch.inference_mode``) would be an
+    inference tensor, which autograd refuses to save when a training step
+    later indexes with it."""
+    def wrap(fn):
+        @functools.lru_cache(maxsize=maxsize)
+        @functools.wraps(fn)
+        def cached(*args):
+            with torch.inference_mode(False):
+                return fn(*args)
+        return cached
+    return wrap
+
+
+@table_cache(maxsize=64)
 def _pred_index(topo: Topology, device: torch.device):
     """(pred, heads): pred[d] = the PE whose push PE d pops (its topology
     predecessor); heads = the PEs that no link feeds (None on a cycle),
@@ -107,6 +124,35 @@ def _sw_hop(topo: Topology, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _Fork(torch.autograd.Function):
+    """Two aliases of a stream operand for its two readers, the consume
+    and the hop. Autograd adds the gradients of a tensor's readers in the
+    order their backward runs, which the link mode sets (it orders the
+    readers); this backward adds them in one order, so the modes'
+    gradients stay bit-identical."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x), x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g_consume, g_hop):
+        if g_consume is None or g_hop is None:
+            return g_hop if g_consume is None else g_consume
+        return g_consume + g_hop
+
+
+def _fork(x):
+    """(to_consume, to_hop): ``x`` twice, through ``_Fork`` where autograd
+    records."""
+    if not torch.is_grad_enabled() or not any(
+            leaf.requires_grad for leaf in _leaves(x)):
+        return x, x
+    pairs = [_Fork.apply(leaf) for leaf in _leaves(x)]
+    return (_rebuild(x, [a for a, _ in pairs]),
+            _rebuild(x, [b for _, b in pairs]))
+
+
 def stream(topo: Topology, x0, n_steps: int,
            consume: Callable[[Any, Any, int], Any], state0,
            mode: str = "qlr"):
@@ -116,12 +162,13 @@ def stream(topo: Topology, x0, n_steps: int,
     check_mode(mode)
     buf, state = x0, state0
     for t in range(n_steps):
+        to_consume, to_hop = _fork(buf)
         if mode == "qlr":
-            nxt = hop(topo, buf, mode)          # issued before the consume
-            state = consume(state, buf, t)
+            nxt = hop(topo, to_hop, mode)       # issued before the consume
+            state = consume(state, to_consume, t)
         else:
-            state = consume(state, buf, t)
-            nxt = hop(topo, buf, mode)          # serialized after it
+            state = consume(state, to_consume, t)
+            nxt = hop(topo, to_hop, mode)       # serialized after it
         buf = nxt
     return state, buf
 

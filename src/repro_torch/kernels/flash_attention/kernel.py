@@ -27,6 +27,7 @@ import ctypes
 import math
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels._build import (
     Kernel,
@@ -165,7 +166,8 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
 
 class _FlashCarry(torch.autograd.Function):
     """Forward: the CUDA kernel. Backward: autograd of the plain twin (the
-    reference's ``ops._carry_fused`` custom VJP)."""
+    reference's ``ops._carry_fused`` custom VJP), under the profiler label
+    ``flash_carry_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, m, l, acc, q_off, k_off, klen, kv_row, causal,
@@ -180,7 +182,7 @@ class _FlashCarry(torch.autograd.Function):
     def backward(ctx, *grads):
         q, k, v, m, l, acc, q_off, k_off, klen, kv_row = ctx.saved_tensors
         diff = [x.detach().requires_grad_(True) for x in (q, k, v, m, l, acc)]
-        with torch.enable_grad():
+        with torch.enable_grad(), record_function("flash_carry_backward"):
             outs = flash_carry_plain(*diff, q_off, k_off, klen, kv_row,
                                      **ctx.opts)
             pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]

@@ -11,28 +11,35 @@ reference there is no fallback for shapes that do not tile.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.systolic_matmul import kernel
 
 
 class _TileMatmul(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: the plain product's gradient
-    (the reference's ``_mm_fused`` custom VJP)."""
+    """Forward: the CUDA kernel. Backward: the gradient of the reference's
+    plain form ``(c +) a.astype(out) @ b.astype(out)`` (``_mm_fused``'s
+    custom VJP): both products in the output type (bf16 hops: bf16
+    operands, fp32 accumulation), each gradient in its input's type. The
+    backward runs under the profiler label ``tile_matmul_backward``."""
 
     @staticmethod
     def forward(ctx, a, b, c, out_dtype):
         ctx.save_for_backward(a, b)
         ctx.has_c = c is not None
         ctx.c_dtype = c.dtype if c is not None else None
+        ctx.out_dtype = out_dtype
         return kernel.matmul_cuda(a, b, c, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        g32 = g.float()
-        ga = torch.matmul(g32, b.float().transpose(1, 2)).to(a.dtype)
-        gb = torch.matmul(a.float().transpose(1, 2), g32).to(b.dtype)
-        gc = g.to(ctx.c_dtype) if ctx.has_c else None
+        dt = ctx.out_dtype
+        with record_function("tile_matmul_backward"):
+            g = g.to(dt)
+            ga = torch.matmul(g, b.to(dt).transpose(1, 2)).to(a.dtype)
+            gb = torch.matmul(a.to(dt).transpose(1, 2), g).to(b.dtype)
+            gc = g.to(ctx.c_dtype) if ctx.has_c else None
         return ga, gb, gc, None
 
 

@@ -1,7 +1,8 @@
 """Common model substrate of the dense slice: dtypes, parameter init from a
 ``torch.Generator``, RMS norms, rotary embeddings, embedding, tied LM
-logits and the SwiGLU MLP. Mirrors ``repro/models/common.py``; parameters
-are plain nested dicts of tensors, as the reference's value trees are.
+logits, the chunked cross-entropy loss and the SwiGLU MLP. Mirrors
+``repro/models/common.py``; parameters are plain nested dicts of tensors,
+as the reference's value trees are.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -122,6 +124,68 @@ def init_lm_head(gen, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return {}
     return {"w": param(gen, (cfg.d_model, cfg.vocab_size), pdtype(cfg))}
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _ce(logits, targets, z_loss: float):
+    """Per-position CE of fp32 logits [..., V] (and its z-loss term)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ce = lse - torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if z_loss:
+        ce = ce + z_loss * torch.square(lse)
+    return ce
+
+
+def lm_loss_chunked(head_params, embed_params, x, targets, cfg: ModelConfig,
+                    mask=None, chunk: int = 512, z_loss: float = 0.0):
+    """CE loss without materializing [B,S,V] logits.
+
+    Loops over sequence chunks; each chunk's logits are computed, reduced
+    to (sum of masked ce, sum of mask) and recomputed in the backward pass
+    (``torch.utils.checkpoint``), so peak memory is O(B * chunk * V)
+    instead of O(B * S * V). A ragged tail is padded with masked-out
+    positions, as in the reference.
+    """
+    b, s, _ = x.shape
+    if s <= chunk:
+        logits = lm_logits(head_params, embed_params, x, cfg)
+        return softmax_cross_entropy(logits, targets, mask, z_loss)
+    nch = -(-s // chunk)
+    pad = nch * chunk - s
+    mask_full = (mask.float() if mask is not None
+                 else torch.ones((b, s), dtype=torch.float32,
+                                 device=x.device))
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask_full = F.pad(mask_full, (0, pad))
+
+    def chunk_loss(xs, ts, ms):
+        logits = lm_logits(head_params, embed_params, xs, cfg)
+        ce = _ce(logits, ts, z_loss)
+        return torch.sum(ce * ms), torch.sum(ms)
+
+    num = torch.zeros((), dtype=torch.float32, device=x.device)
+    den = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nch):
+        cut = slice(i * chunk, (i + 1) * chunk)
+        n_c, d_c = checkpoint(chunk_loss, x[:, cut], targets[:, cut],
+                              mask_full[:, cut], use_reentrant=False)
+        num, den = num + n_c, den + d_c
+    return num / torch.clamp(den, min=1.0)
+
+
+def softmax_cross_entropy(logits, targets, mask=None, z_loss: float = 0.0):
+    """Mean CE over (optionally masked) positions. logits [..., V]."""
+    ce = _ce(logits.float(), targets, z_loss)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(ce)
 
 
 # ---------------------------------------------------------------------------

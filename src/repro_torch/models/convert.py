@@ -1,4 +1,5 @@
-"""Parameters between the reference's layout and the port's.
+"""Parameters and train states between the reference's layout and the
+port's.
 
 The reference keeps a tree whose ``layers`` leaves are stacked along a
 leading layer dimension (``models/common.split_tree`` of its ``init``);
@@ -6,13 +7,16 @@ the port keeps a list of per-layer dicts (dense: ``{norm1, norm2, attn,
 mlp}``; Mamba2: ``{norm, mixer}``). ``params_from_reference`` takes that
 tree with numpy leaves (``np.asarray`` of each value, bfloat16
 included) so both packages compute the same function in the tests.
+``state_from_reference`` / ``state_to_reference`` carry a whole train
+state, ``{"params", "opt": {"m", "v", "master", "step"}}``, whose
+optimizer trees mirror the parameter tree in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.common import pdtype, resolve_device
 
 FP32_LEAVES = ("A_log", "D", "dt_bias")
@@ -42,13 +46,9 @@ def _first_leaf(tree):
     return tree
 
 
-def params_from_reference(tree, cfg: ModelConfig, device="cuda"):
-    """Reference value tree (numpy leaves) -> the port's parameters. Every
-    leaf takes the parameter dtype except those the reference keeps fp32
-    whatever it is (``FP32_LEAVES``: Mamba2's ``A_log``, ``D``,
-    ``dt_bias``)."""
-    dev = resolve_device(device)
-    dt = pdtype(cfg)
+def _from_reference(tree, dt, dev):
+    """A parameter-shaped reference tree -> the port's layout; leaves take
+    ``dt`` except ``FP32_LEAVES``."""
 
     def convert(tree, index=None, name=""):
         if isinstance(tree, dict):
@@ -64,6 +64,31 @@ def params_from_reference(tree, cfg: ModelConfig, device="cuda"):
         "head": convert(tree.get("head", {})),
         "layers": [convert(layers, i) for i in range(n_layers)],
     }
+
+
+def params_from_reference(tree, cfg: ModelConfig, device="cuda"):
+    """Reference value tree (numpy leaves) -> the port's parameters. Every
+    leaf takes the parameter dtype except those the reference keeps fp32
+    whatever it is (``FP32_LEAVES``: Mamba2's ``A_log``, ``D``,
+    ``dt_bias``)."""
+    return _from_reference(tree, pdtype(cfg), resolve_device(device))
+
+
+def state_from_reference(tree, cfg: ModelConfig, tcfg: TrainConfig,
+                         device="cuda"):
+    """Reference train state (numpy leaves) -> the port's: parameters in
+    the parameter dtype, ``m``, ``v`` and ``master`` (when
+    ``tcfg.use_master_weights``) in fp32, ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+    ropt = tree["opt"]
+    opt = {"m": _from_reference(ropt["m"], torch.float32, dev),
+           "v": _from_reference(ropt["v"], torch.float32, dev),
+           "step": torch.tensor(int(np.asarray(ropt["step"])),
+                                dtype=torch.int32, device=dev)}
+    if tcfg.use_master_weights:
+        opt["master"] = _from_reference(ropt["master"], torch.float32, dev)
+    return {"params": params_from_reference(tree["params"], cfg, dev),
+            "opt": opt}
 
 
 def _zip_map(trees, fn):
@@ -83,3 +108,12 @@ def params_to_reference(params):
         "layers": _zip_map(params["layers"],
                            lambda *ls: np.stack([as_np(t) for t in ls])),
     }
+
+
+def state_to_reference(state):
+    """The port's train state -> the reference's layout: float32 numpy
+    trees and an int32 ``step``."""
+    opt = {k: params_to_reference(v) for k, v in state["opt"].items()
+           if k != "step"}
+    opt["step"] = np.asarray(int(state["opt"]["step"]), np.int32)
+    return {"params": params_to_reference(state["params"]), "opt": opt}

@@ -7,13 +7,30 @@ keeps the reference's stacked layout, ``cache["layers"][name]`` with a
 leading layer dimension, and each layer updates its slice in place.
 
 ``n_pe`` is the size of the emulated systolic ring (0: none). With
-``cfg.systolic_mode`` set to a link mode the prefill FFN runs as the
+``cfg.systolic_mode`` set to a link mode the full-sequence FFN runs as the
 systolic SwiGLU (AG ring in, RS ring out) and the attention sublayer
-routes through the ring schedules (``models/attention``).
+routes through the ring schedules (``models/attention``), in the training
+forward as in prefill. Their kernels' backward is the plain twin's
+gradient (the wrappers' ``autograd.Function``s).
+
+While gradients are recorded, each block runs under ``cfg.remat`` (the
+reference's ``_remat``): ``none``; ``full``, ``torch.utils.checkpoint``
+per block, which recomputes the block (and launches its ring kernels
+again) in the backward; ``selective``, the same but keeping the outputs of
+the plain 2-D products (``aten.mm``/``addmm``: the counterpart of
+``dots_with_no_batch_dims_saveable``). The ring kernels are not aten ops,
+so under ``selective`` they are recomputed as under ``full``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -27,8 +44,30 @@ from repro_torch.models.common import (
     init_mlp,
     init_norm,
     lm_logits,
+    lm_loss_chunked,
     resolve_device,
 )
+
+REMATS = ("none", "full", "selective")
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    if cfg.remat not in REMATS:
+        raise ValueError(f"unknown remat {cfg.remat!r}; expected one of "
+                         f"{REMATS}")
+    if cfg.remat == "none":
+        return fn
+    kwargs = {}
+    if cfg.remat == "selective":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +96,13 @@ def _maybe_systolic_mlp(lp_mlp, h, cfg: ModelConfig, n_pe: int):
                 h.to(dt), lp_mlp["w_gate"].to(dt), lp_mlp["w_up"].to(dt),
                 lp_mlp["w_down"].to(dt), n, cfg.systolic_mode)
     return apply_mlp(lp_mlp, h, cfg)
+
+
+def block_forward(lp, x, cfg: ModelConfig, n_pe: int = 0):
+    """One block over a full sequence. Returns (x, aux_loss): the dense
+    family has no auxiliary loss, so aux is a zero."""
+    x, _ = block_prefill(lp, x, cfg, n_pe)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_prefill(lp, x, cfg: ModelConfig, n_pe: int = 0):
@@ -108,15 +154,31 @@ class TransformerLM:
 
     # ------------------------------------------------------------- forward
     def hidden_states(self, params, tokens):
-        """tokens [B,S] -> final-norm hidden states [B,S,D]."""
-        x = embed(params["embed"], tokens, self.cfg)
+        """tokens [B,S] -> (final-norm hidden states [B,S,D], aux loss).
+        Blocks run under ``cfg.remat`` while gradients are recorded."""
+        cfg = self.cfg
+        body = functools.partial(block_forward, cfg=cfg, n_pe=self.n_pe)
+        if torch.is_grad_enabled():
+            body = _remat(body, cfg)
+        x = embed(params["embed"], tokens, cfg)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
-            x, _ = block_prefill(lp, x, self.cfg, self.n_pe)
-        return apply_norm(params["final_norm"], x, self.cfg)
+            x, aux = body(lp, x)
+            aux_total = aux_total + aux
+        return apply_norm(params["final_norm"], x, cfg), aux_total
+
+    def loss(self, params, batch):
+        """Training loss: ``batch`` holds ``tokens`` and ``targets`` [B,S]
+        and optionally a ``mask`` [B,S]. Returns (loss, {"ce", "aux"})."""
+        x, aux = self.hidden_states(params, batch["tokens"])
+        ce = lm_loss_chunked(params["head"], params["embed"], x,
+                             batch["targets"], self.cfg,
+                             mask=batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens):
         """Forward pass returning last-position logits [B, V]."""
-        x = self.hidden_states(params, tokens)
+        x, _ = self.hidden_states(params, tokens)
         return lm_logits(params["head"], params["embed"], x[:, -1], self.cfg)
 
     # ------------------------------------------------------------- decode

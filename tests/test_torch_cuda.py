@@ -498,3 +498,129 @@ def test_cuda_mamba_prefill_launches_ssd_once_per_layer(cuda):
     from repro_torch.serve.sharded_cache import _to_device
     want = model.prefill(_to_device(params, "cpu"), tokens.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training: the autograd.Functions at the training hops, and a ring step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ffn_ag", "ffn_rs_carry", "expanded"])
+def test_cuda_tile_matmul_grads_at_training_hops(cuda, case):
+    """``_TileMatmul``'s gradients at qwen3-0.6b's training hops (B=8,
+    S=1024 on a ring of 4): bf16 products (the reference's plain form)
+    against the fp32 twin's autograd, within one bf16 rounding of the
+    largest gradient; a weight expanded over the PE dimension gets its
+    gradient summed back."""
+    from repro_torch.kernels.systolic_matmul import ops as mm_ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=g, device=cuda) * 0.1).to(bf)
+
+    p, m, d, f = 4, 2048, 1024, 768
+    c = None
+    if case == "ffn_rs_carry":
+        a, w, c = rnd(p, m, f), rnd(p, f, d), rnd(p, m, d)
+    elif case == "expanded":                 # one [D, F] weight for all PEs
+        a, w = rnd(p, m, d), rnd(d, f)
+    else:
+        a, w = rnd(p, m, d), rnd(p, d, f)
+    leaves = [x.requires_grad_(True) for x in (a, w, c) if x is not None]
+
+    def run(fn):
+        b = w[None].expand(p, *w.shape) if case == "expanded" else w
+        out = fn(a, b, c, bf)
+        up = torch.randn(out.shape, generator=torch.Generator(
+            device=cuda).manual_seed(4), device=cuda).to(bf)
+        return out, torch.autograd.grad(out, leaves, up)
+
+    before = mk.TILE_MATMUL.launches
+    out, got = run(mm_ops._TileMatmul.apply)
+    assert mk.TILE_MATMUL.launches == before + 1
+    want_out, want = run(mk.matmul_plain)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    for x, y, leaf in zip(got, want, leaves):
+        assert x.shape == leaf.shape and x.dtype == leaf.dtype
+        tol = 2 ** -7 * float(y.float().abs().max())
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_carry_grads_at_training_hop(cuda):
+    """``_FlashCarry`` at qwen3-0.6b's training hop (32 rows of PE x
+    batch, 256 queries and keys, 16 heads over 8 KV heads, bf16, causal,
+    a carried state with rows still at the sentinel): its backward is the
+    twin's gradient at the saved inputs, so it equals the twin's autograd
+    to fp32 rounding."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, rows, s_l, h, kvh, hd = 4, 32, 256, 16, 8, 128
+    bf = torch.bfloat16
+    pe = torch.arange(n, device=cuda).repeat_interleave(rows // n)
+    src = (pe - 1) % n
+    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(bf)
+    k = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    v = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    m = torch.randn(rows, h, s_l, generator=g, device=cuda)
+    m[::3] = -1e30
+    l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
+    acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
+    ints = (pe * s_l, src * s_l,
+            torch.full((rows,), 2 ** 30, device=cuda), None)
+    diff = [x.requires_grad_(True) for x in (q, k, v, m, l, acc)]
+    ups = [torch.randn(x.shape, generator=g, device=cuda)
+           for x in (m, l, acc)]
+    before = fk.FLASH_CARRY.launches
+    got_out = fk._FlashCarry.apply(*diff, *ints, True, 0, False, None)
+    got = torch.autograd.grad(got_out, diff, ups)
+    assert fk.FLASH_CARRY.launches == before + 1
+    want = torch.autograd.grad(
+        fk.flash_carry_plain(*diff, *ints, causal=True), diff, ups)
+    torch.cuda.synchronize()
+    for x, y, leaf in zip(got, want, diff):
+        assert x.shape == leaf.shape and x.dtype == leaf.dtype
+        assert bool(torch.isfinite(x).all())
+        tol = 1e-5 * max(1.0, float(y.float().abs().max()))
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_ring_vs_dense(cuda):
+    """One fp32 train step of SMOKE qwen3-0.6b on a ring of 2 in qlr (the
+    kernels, forward and remat recompute) against the dense path (no
+    kernel): loss 1e-4, grad norm 1e-3 relative, parameters within
+    ``2 * lr`` (AdamW's first update is about ``sign(g)``)."""
+    from dataclasses import replace
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    cfg = replace(get_smoke_config("qwen3-0.6b"), dtype="float32",
+                  param_dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0,
+                       schedule="constant")
+    state = step_lib.init_state(cfg, tcfg, 0, cuda)
+    raw = SyntheticLM(cfg.vocab_size, seed=0).batch(0, 4, 32)
+    batch = {"tokens": torch.as_tensor(raw[:, :-1], device=cuda),
+             "targets": torch.as_tensor(raw[:, 1:], device=cuda)}
+    counts = lambda: (fk.FLASH_CARRY.launches,   # noqa: E731
+                      mk.TILE_MATMUL.launches)
+    before = counts()
+    dense, dm = step_lib.make_train_step(cfg, tcfg, 0)(state, batch)
+    assert counts() == before
+    ring, rm = step_lib.make_train_step(
+        replace(cfg, systolic_mode="qlr"), tcfg, 2)(state, batch)
+    torch.cuda.synchronize()
+    # per layer: 2 flash hops and 12 tile hops, run again by the remat
+    assert (counts()[0] - before[0], counts()[1] - before[1]) == \
+        (2 * 2 * cfg.num_layers, 2 * 12 * cfg.num_layers)
+    assert abs(float(rm["loss"]) - float(dm["loss"])) <= 1e-4
+    assert float(rm["grad_norm"]) == pytest.approx(float(dm["grad_norm"]),
+                                                   rel=1e-3)
+    for x, y in zip(opt.tree_leaves(ring["params"]),
+                    opt.tree_leaves(dense["params"])):
+        torch.testing.assert_close(x, y, rtol=0, atol=2 * 1e-3)
