@@ -58,7 +58,23 @@ non-zero before the result lines are printed:
    twin backwards). Then parity: 4 layers at full width, fp32, B=2,
    S=512: the loss and every gradient of the ring path in sw, xqueue and
    qlr against the dense path within 1e-4 and 1e-3, the modes bit for
-   bit.
+   bit;
+10. the serving launcher: (a) ``repro_torch.launch.serve.main`` as a user
+   runs it, qwen3-0.6b at full width, ring of 4 in qlr, batch 8, 1024
+   slots, block prefill 256, 8 requests of 16 new tokens, with checked
+   links, the health monitor and link telemetry, metrics and trace
+   written to ``build/serve_launcher/``: every request done, both kernels
+   launched, link pushes counted and no link error, ``decode`` and
+   ``probe`` spans in the trace; (b) the same requests plain and observed
+   in turns (plain, observed, observed, plain, plain, observed): the same
+   greedy tokens and the same launches per prefill and per decode step; (c) chaos: each fault
+   kind fired at decode tick 3, hop 1, PE 2 is caught by the probe on
+   qlr, xqueue and sw, the ladder ends at ``ring-baseline`` within the
+   tick, every request completes and the tokens equal bit for bit a
+   clean run force-degraded at the same tick; (d) decode-tick wall ms and
+   tokens/s of (b)'s runs, the observers' own costs alone (the snapshot
+   clone between CUDA events, the probe on the host clock), and the
+   paper's utilization model over the launcher run's counters.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -201,6 +217,21 @@ def ptxas_summary(text: str):
             out.append((func, f"Used {used}; {spill}"))
             func = None
     return out
+
+
+def event_ms(torch, fn, iters: int = 10) -> float:
+    """Mean ms of one call between CUDA events around ``iters`` calls
+    (warmed first): the whole stream's time, launch gaps included."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -1347,6 +1378,239 @@ def train_parity(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving launcher
+# ---------------------------------------------------------------------------
+
+LAUNCH_REQUESTS = 8
+LAUNCH_NEW = 16
+LAUNCH_ARGS = ["--arch", "qwen3-0.6b", "--full", "--backend", "ring",
+               "--n-pe", str(N_PE), "--mode", "qlr", "--max-batch",
+               str(BATCH), "--max-seq", str(MAX_SEQ), "--prefill-chunk",
+               str(CHUNK), "--requests", str(LAUNCH_REQUESTS), "--max-new",
+               str(LAUNCH_NEW)]
+OBSERVERS = ["--checked", "--monitor", "--telemetry"]
+CHAOS_KINDS = ("corrupt", "drop", "stale", "slow")
+CHAOS_REQUESTS = 4
+CHAOS_NEW = 8
+FAULT_TICK = 3                     # decode tick 3 (from 0): hop 1, PE 2
+
+
+def launcher_prompts(cfg, n: int):
+    """The launcher's prompts: ``np.random.default_rng(0)``, 2-11 tokens."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=rng.integers(2, 12))
+            .astype(np.int32) for _ in range(n)]
+
+
+def drive_engine(torch, kernels, eng, prompts, max_new, fault=None,
+                 degrade_at=None):
+    """Serve ``prompts`` to completion tick by tick. At tick
+    ``FAULT_TICK`` arm ``fault`` for one guarded step, or (``degrade_at``)
+    force the ladder down three rungs first. Per tick: the launches of the
+    admissions (block prefills) and of the step, and the step's wall ms
+    (the tick ends synchronized: sampling copies the tokens to the host)."""
+    from repro_torch.core import faults
+    reqs = [eng.sched.submit(p, max_new) for p in prompts]
+    admits, steps, step_ms = [], [], []
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick = 0
+    while eng.sched.busy:
+        c0 = counts()
+        n_pre = eng.metrics.histogram("repro_prefill_latency_seconds").count
+        eng._admit()
+        c1 = counts()
+        n_pre = eng.metrics.histogram(
+            "repro_prefill_latency_seconds").count - n_pre
+        if n_pre:
+            admits.append({"prefills": n_pre, **{
+                k: c1[k] - c0[k] for k in c0}})
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        if tick == FAULT_TICK and degrade_at:
+            for _ in range(3):
+                eng.monitor.force_degrade()
+            eng.step()
+        elif tick == FAULT_TICK and fault is not None:
+            with faults.inject(fault):
+                eng.step()
+        else:
+            eng.step()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        steps.append({k: v - c1[k] for k, v in counts().items()})
+        tick += 1
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    return {"reqs": reqs, "tokens": [tuple(r.out_tokens) for r in reqs],
+            "admits": admits, "steps": steps, "step_ms": step_ms,
+            "seconds": seconds, "tokens_per_s": tokens / seconds,
+            "median_step_ms": float(np.median(step_ms)),
+            "backend": eng.backend.name}
+
+
+def serve_launcher(torch, kernels, dev, card: str):
+    """Phase 10: (a) ``repro_torch.launch.serve.main`` at full width with
+    checked links, the monitor and telemetry; (b) the same requests plain
+    and observed, same tokens and launches; (c) chaos: every fault kind at
+    decode tick 3, hop 1, PE 2 recovers down the ladder bitwise; (d) the
+    observers' overhead, the snapshot clone's device ms and the paper's
+    utilization model over the run's counters."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.core import faults
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build_model
+    from repro_torch.obs import utilization
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.health import HealthConfig
+    from repro_torch.serve.sharded_cache import RingShardedBackend
+    from repro_torch.train.optimizer import tree_leaves
+
+    out_dir = ROOT / "build" / "serve_launcher"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    metrics_path = out_dir / "metrics.json"
+    trace_path = out_dir / "trace.json"
+
+    # (a) the launcher, as a user runs it
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine, reqs = launch.main(
+        LAUNCH_ARGS + OBSERVERS + ["--device", str(dev), "--metrics-out",
+                                   str(metrics_path), "--trace-out",
+                                   str(trace_path)])
+    torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    assert len(reqs) == LAUNCH_REQUESTS
+    for r in reqs:
+        assert r.status == "done" and len(r.out_tokens) == LAUNCH_NEW, \
+            (r.rid, r.status)
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched by the launcher"
+    counters = json.loads(metrics_path.read_text())["counters"]
+    assert counters["repro_link_pushes_total"] > 0, counters
+    for err in ("tag_errors", "csum_errors", "faulty_hops"):
+        assert counters[f"repro_link_{err}_total"] == 0, counters
+    spans = {e["name"] for e in
+             json.loads(trace_path.read_text())["traceEvents"]}
+    assert {"decode", "probe"} <= spans, spans
+    assert engine.monitor.events == [], engine.monitor.events
+    link_stats = engine.backend.link_stats()
+    del engine
+
+    # (b) and (d): plain and observed in turns, the same requests
+    cfg = get_config("qwen3-0.6b")
+    params = build_model(cfg).init(seed=0, device=dev)
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=MAX_SEQ,
+                       prefill_chunk=CHUNK)
+
+    def engine_for(observed: bool):
+        be = RingShardedBackend(cfg, scfg, params, N_PE, "qlr",
+                                checked=observed, telemetry=observed,
+                                device=dev)
+        return ServeEngine(cfg, scfg, params, backend=be, device=dev,
+                           health=HealthConfig() if observed else None)
+
+    prompts = launcher_prompts(cfg, LAUNCH_REQUESTS)
+    runs = {"plain": [], "observed": []}
+    for side in ("plain", "observed", "observed", "plain", "plain",
+                 "observed"):
+        runs[side].append(drive_engine(torch, kernels,
+                                       engine_for(side == "observed"),
+                                       prompts, LAUNCH_NEW))
+    plain, observed = runs["plain"][0], runs["observed"][0]
+    for run in runs["plain"] + runs["observed"]:
+        assert run["tokens"] == plain["tokens"], "observers changed tokens"
+        assert run["admits"] == plain["admits"], \
+            (run["admits"], plain["admits"])
+        assert run["steps"] == plain["steps"], "observers changed launches"
+    per_prefill = {k: v // plain["admits"][0]["prefills"]
+                   for k, v in plain["admits"][0].items() if k != "prefills"}
+    per_decode = plain["steps"][-1]
+
+    # (c) chaos: the ladder recovers bitwise
+    chaos_prompts = launcher_prompts(cfg, CHAOS_REQUESTS)
+    clean = drive_engine(torch, kernels, engine_for(True), chaos_prompts,
+                         CHAOS_NEW, degrade_at=True)
+    assert clean["backend"] == "ring-baseline+checked", clean["backend"]
+    chaos = {}
+    for kind in CHAOS_KINDS:
+        eng = engine_for(True)
+        run = drive_engine(torch, kernels, eng, chaos_prompts, CHAOS_NEW,
+                           fault=faults.FaultSpec(kind, hop=1, device=2,
+                                                  seed=7))
+        events = [(e.tick, e.kind) for e in eng.monitor.events]
+        chaos[kind] = {"backend": run["backend"], "events": events,
+                       "bitwise": run["tokens"] == clean["tokens"]}
+        log(f"[launcher] chaos {kind}: {json.dumps(chaos[kind])}")
+        assert run["backend"] == "ring-baseline+checked", (kind, run)
+        assert all(r.status == "done" for r in run["reqs"]), kind
+        assert events == [(FAULT_TICK + 1, k) for k in
+                          ("link_fault", "degrade") * 3], (kind, events)
+        assert chaos[kind]["bitwise"], (kind, run["tokens"], clean["tokens"])
+
+    # (d) what the observers add to a tick, measured alone: the snapshot
+    # clone (CUDA events over 10 clones; the profiler's sum beside it) and
+    # the probe (host clock, synchronized: it reads its health)
+    be = RingShardedBackend(cfg, scfg, params, N_PE, "qlr", checked=True,
+                            device=dev)
+    snapshot_ms = event_ms(torch, be.snapshot_cache, iters=10)
+    snapshot_profiled_ms = time_ms(be.snapshot_cache, iters=10)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in be.cache["layers"].values())
+    cache_gb = cache_bytes / 1e9
+    snapshot_bound_ms = bound(2 * cache_bytes, 0, "bf16")[0]
+    probe_ms = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        be._probe_links(faults.no_fault_vec())
+        probe_ms.append((time.perf_counter() - t1) * 1e3)
+    del be
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_nonembed = n_params - params["embed"]["table"].numel()
+    computed = (len(reqs) * BATCH * CHUNK
+                + int(counters["repro_ticks_total"]) * BATCH)
+    flops = 2.0 * (n_nonembed + cfg.d_model * cfg.vocab_size) * computed
+    rep = utilization.report(link_stats, flops=flops, mode="qlr")
+    table = utilization.table([rep])
+    overhead = {side: {"median_step_ms": [r["median_step_ms"]
+                                          for r in runs[side]],
+                       "tokens_per_s": [r["tokens_per_s"] for r in runs[side]]}
+                for side in runs}
+    result = {"card": card, "launcher_seconds": launcher_s,
+              "launches": launches, "link_stats": link_stats,
+              "launches_per_call": {"prefill": per_prefill,
+                                    "decode_step": per_decode},
+              "overhead": overhead, "chaos": chaos,
+              "snapshot_ms": snapshot_ms,
+              "snapshot_profiled_ms": snapshot_profiled_ms,
+              "snapshot_bound_ms": snapshot_bound_ms,
+              "probe_median_ms": float(np.median(probe_ms)),
+              "cache_gb": cache_gb,
+              "utilization": {"flops": flops, "tokens_computed": computed,
+                              "util": rep.utilization,
+                              "gops_per_w_modeled": rep.gops_per_w}}
+    log(f"[launcher] {card}: {json.dumps(result)}")
+    log(f"[launcher] {card}: decode tick median ms plain "
+        f"{overhead['plain']['median_step_ms']} vs observed "
+        f"{overhead['observed']['median_step_ms']}; tokens/s plain "
+        f"{overhead['plain']['tokens_per_s']} vs observed "
+        f"{overhead['observed']['tokens_per_s']}; snapshot clone "
+        f"{snapshot_ms:.4f} ms (CUDA events; profiler "
+        f"{snapshot_profiled_ms:.4f}, bound {snapshot_bound_ms:.4f}) for "
+        f"{cache_gb:.3f} GB; probe {np.median(probe_ms):.3f} ms host")
+    log(f"[launcher] paper model over the launcher run's counters "
+        f"(qlr, {flops:.4g} FLOPs):\n{table}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1418,13 +1682,20 @@ def main() -> int:
     log(f"[train-parity] {time.perf_counter() - t1:.1f} s")
     log(f"[train] phase 9 {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launcher = serve_launcher(torch, (fk.FLASH_CARRY, mk.TILE_MATMUL), dev,
+                              card)
+    log(f"[launcher] phase 10 {time.perf_counter() - t0:.1f} s")
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
                    "dsp": dsp_launches[kern.name],
                    "mamba_prefill": prefill["launches"][kern.name],
                    "mamba_serve": mserve["launches"][kern.name],
-                   "train": train["launches"].get(kern.name, 0)}
+                   "train": train["launches"].get(kern.name, 0),
+                   "serve_launcher": launcher["launches"].get(kern.name, 0)}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -1462,7 +1733,7 @@ def main() -> int:
               "src/repro/kernels/fft/kernel.py:58", ffts, "fft256_B4096"),
     ], "serve": served, "dsp": dsp, "mamba_prefill": prefill,
         "mamba_parity": parity, "mamba_serve": mserve, "train": train,
-        "train_parity": tparity}
+        "train_parity": tparity, "serve_launcher": launcher}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

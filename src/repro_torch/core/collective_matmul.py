@@ -13,6 +13,11 @@ all-gather and one local product (the pure shared-memory model).
 ``cannon_matmul`` is the 2-D output-stationary form (the paper's matmul
 kernel): a square grid folded from the PE axis, A tiles streaming left
 along the rows and B tiles up along the columns.
+
+Telemetry (``obs/linkstats.py``) counts what the reference counts: the
+baseline's all-gathers and reduce-scatter as multicast loads, every hop as
+queue traffic, the masked skew as its n-1 hops per operand. Hops carry
+the reference's sequence numbers, so a fault spec reaches the same hops.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.core import topology as topo_lib
 from repro_torch.core.queues import table_cache
 from repro_torch.core.topology import Topology, ring, torus_shift
 from repro_torch.kernels.systolic_matmul.ops import tile_matmul
+from repro_torch.obs import linkstats
 
 
 @table_cache(maxsize=64)
@@ -67,6 +73,7 @@ def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo: Topology,
     if mode == "baseline":
         xs = torch.cat(x_local.unbind(0), dim=-2)          # all-gather
         xs = xs.unsqueeze(0).expand(n, *xs.shape)
+        linkstats.record_multicast(x_local, fan_in=n)
         return [tile_matmul(xs, w) for w in ws]
 
     src_table = _source_table(topo, x_local.device)
@@ -114,8 +121,10 @@ def ring_matmul_rs(x, w, topo: Topology, mode: str = "qlr"):
     if mode == "baseline":
         y = tile_matmul(x, w)
         y_s = _chunks(y, n).sum(dim=0)                      # reduce ...
-        return y_s.permute(1, 0, 2, 3).reshape(n, *lead, s_local,
-                                              w.shape[-1])  # ... scatter
+        y_s = y_s.permute(1, 0, 2, 3).reshape(n, *lead, s_local,
+                                             w.shape[-1])   # ... scatter
+        linkstats.record_multicast(y_s, fan_in=n)   # n partials per chunk
+        return y_s
 
     dst_table = _dest_table(topo, x.device)
     pe = torch.arange(n, device=x.device)
@@ -131,7 +140,7 @@ def ring_matmul_rs(x, w, topo: Topology, mode: str = "qlr"):
     for t in range(1, n):
         # every mode hops, then folds the next partial into what arrived;
         # the reference's xqueue/sw barrier only pins this same order
-        moved = queues.hop(hops[t - 1], acc, mode)
+        moved = queues.hop(hops[t - 1], acc, mode, t=t - 1)
         acc = part(t, moved)
     return acc
 
@@ -158,14 +167,21 @@ def _rot_masks(times: tuple, n: int, device) -> torch.Tensor:
         .to(device)
 
 
-def _masked_rot(x, topo: Topology, times: tuple, n: int, mode: str = "qlr"):
+def _masked_rot(x, topo: Topology, times: tuple, n: int, mode: str = "qlr",
+                t0: int = 0):
     """Rotate PE d's ``x`` ``times[d]`` hops along ``topo``: n-1 hops, PE d
     keeping its value once hop i >= times[d]. The loop always runs n-1 hops
-    over the requested link mode: that is the masked skew's cost."""
+    over the requested link mode: that is the masked skew's cost. Hop i
+    carries sequence number ``t0 + i``, so a fault spec can reach the skew
+    traffic."""
     masks = _rot_masks(tuple(times), n, x.device)
-    for i in range(n - 1):
-        moved = queues.hop(topo, x, mode)
-        x = torch.where(masks[i].view(-1, *([1] * (x.dim() - 1))), moved, x)
+    x0 = x
+    with linkstats.mute():
+        for i in range(n - 1):
+            moved = queues.hop(topo, x, mode, t=t0 + i)
+            x = torch.where(masks[i].view(-1, *([1] * (x.dim() - 1))),
+                            moved, x)
+    linkstats.record_hops(x0, n - 1)      # the skew always runs n-1 hops
     return x
 
 
@@ -231,19 +247,19 @@ def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
     if not preskewed:
         pe = range(n * n)
         a_local = _masked_rot(a_local, row_topo, tuple(d // cols for d in pe),
-                              n, mode)
+                              n, mode, t0=n - 1)
         b_local = _masked_rot(b_local, col_topo, tuple(d % cols for d in pe),
-                              n, mode)
+                              n, mode, t0=n - 1)
     for t in range(n):
         last = t == n - 1
         if mode == "qlr" and not last:   # next operands in flight first
-            nxt = (queues.hop(row_topo, a_local, mode),
-                   queues.hop(col_topo, b_local, mode))
+            nxt = (queues.hop(row_topo, a_local, mode, t=t),
+                   queues.hop(col_topo, b_local, mode, t=t))
         acc = tile_matmul(a_local, b_local, acc)
         if not last:
             if mode != "qlr":
-                nxt = (queues.hop(row_topo, a_local, mode),
-                       queues.hop(col_topo, b_local, mode))
+                nxt = (queues.hop(row_topo, a_local, mode, t=t),
+                       queues.hop(col_topo, b_local, mode, t=t))
             a_local, b_local = nxt
     return acc
 

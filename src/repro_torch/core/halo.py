@@ -29,8 +29,9 @@ def exchange_halo(x_local, n: int, halo: int = 1, mode: str = "qlr"):
     if x_local.shape[0] != n or not 1 <= halo <= x_local.shape[1]:
         raise ValueError(f"exchange_halo: {tuple(x_local.shape)} does not "
                          f"hold {n} PEs of at least {halo} rows")
-    top_in = queues.hop(ring("pe", n, step=1), x_local[:, -halo:], mode)
-    bot_in = queues.hop(ring("pe", n, step=-1), x_local[:, :halo], mode)
+    top_in = queues.hop(ring("pe", n, step=1), x_local[:, -halo:], mode, t=0)
+    bot_in = queues.hop(ring("pe", n, step=-1), x_local[:, :halo], mode,
+                        t=0)
     top_in[0] = 0
     bot_in[n - 1] = 0
     return top_in, bot_in

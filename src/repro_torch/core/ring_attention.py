@@ -16,6 +16,12 @@ multicast) and makes one pass.
 Masked scores use the finite sentinel ``-1e30``: causal ring order
 delivers fully masked blocks first, and ``-inf`` would give NaN in
 ``exp(m - m_new)``.
+
+Telemetry counts the reference's queue layout: prefill K and V ride two
+queues here but one stacked ``[2, ...]`` element there, so the stream
+records that element (``record_as``); the decode element (the fp32 query
+and the carried (m, l, acc)) has the reference's shapes per PE. The
+baselines record their all-gathers as multicast loads.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.core import queues
 from repro_torch.core.collective_matmul import _source_table
 from repro_torch.core.topology import Topology, ring
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.obs import linkstats
 
 MODES = ("baseline",) + queues.MODES
 
@@ -56,6 +63,7 @@ def ring_attention(q_local, k_local, v_local, topo: Topology,
         # shared-memory multicast: every PE reads the full K/V
         ks = torch.cat(k_local.unbind(0), dim=1)            # [B, n*s_l, ...]
         vs = torch.cat(v_local.unbind(0), dim=1)
+        linkstats.record_multicast((k_local, v_local), fan_in=n)
         kv_rows = torch.arange(b, device=dev).repeat(n)     # PE d, row i -> i
         m, l, acc = flash_ops.flash_hop(
             q_rows, ks, vs, state0, q_offset=q_off, k_offset=0,
@@ -73,9 +81,12 @@ def ring_attention(q_local, k_local, v_local, topo: Topology,
                 q_rows, k_rows, v_rows, state, q_offset=q_off,
                 k_offset=k_off, causal=causal, window=window)
 
-        # K and V ride two queues of the same link, hopping in lockstep
+        # K and V ride two queues of the same link, hopping in lockstep;
+        # the reference's one stacked element is what telemetry counts
+        stacked = torch.empty((n, 2, *k_local.shape[1:]),
+                              dtype=k_local.dtype, device="meta")
         (m, l, acc), _ = queues.stream(topo, (k_local, v_local), n, consume,
-                                       state0, mode)
+                                       state0, mode, record_as=stacked)
 
     out = acc / torch.clamp(l, min=1e-30)[..., None]         # [n*B,H,sq,hd]
     return out.transpose(1, 2).reshape(n, b, sq, h, hd)
@@ -143,6 +154,7 @@ def ring_decode_attention(q_local, k_cache, v_cache, pos, topo: Topology,
         # shared-memory multicast: every PE reads the full cache, then one
         # dense pass for its own query slice (rows d*b_loc + i)
         q_rows = q32.reshape(rows, 1, h, hd)
+        linkstats.record_multicast((k_cache, v_cache), fan_in=n)
         m, l, acc = flash_ops.flash_hop(
             q_rows, k_cache, v_cache, state0, q_offset=0, k_offset=0,
             k_len=pos + 1, causal=False, window=0)

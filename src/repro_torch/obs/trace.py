@@ -3,7 +3,9 @@ viewable in Perfetto / chrome://tracing.
 
 Span taxonomy (the ``cat`` field groups them in the viewer):
 
-  serve   tick, prefill, decode, sample
+  serve   tick, prefill, decode, sample, probe (checked ring backends);
+          instants link_fault, deadline, nonfinite, degrade, rollback
+          (the health monitor)
 
 A :class:`Tracer` records complete-duration events (``ph: "X"``, ``ts``/
 ``dur`` in microseconds — the trace-event spec's unit) on the host clock.

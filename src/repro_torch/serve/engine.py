@@ -1,6 +1,6 @@
 """Batched serving engine with continuous batching.
 
-A thin composition of two halves, as in the reference:
+A thin composition, as in the reference:
 
 * :class:`repro_torch.serve.scheduler.Scheduler` — host-side continuous
   batching: slot admission/eviction, prompt streaming, per-slot budgets.
@@ -8,12 +8,18 @@ A thin composition of two halves, as in the reference:
   cache and the step. The default is the dense backend; pass
   ``RingShardedBackend(cfg, scfg, params, n_pe, mode)`` to serve from a KV
   cache sharded over an emulated systolic ring.
+* optionally a :class:`repro_torch.serve.health.HealthMonitor` (pass a
+  ``HealthConfig`` as ``health``) — per-tick link-probe / finite / deadline
+  checks with snapshot rollback, poisoned-request eviction and mode-ladder
+  degradation.
 
 Each tick plans a fixed ``max_batch``-row token batch (the ``active`` mask
 keeps idle slots' caches frozen), runs one backend step, samples, and
 commits. The engine owns a metrics :class:`~repro_torch.obs.metrics.
 Registry` and an optional :class:`~repro_torch.obs.trace.Tracer` that
-spans each tick's phases (prefill / decode / sample).
+spans each tick's phases (prefill / decode / sample; the backend adds
+probe, the monitor rollback / degrade / evict marks);
+``export_observability`` writes both, the link telemetry folded in.
 """
 from __future__ import annotations
 
@@ -41,11 +47,12 @@ class TicksExhaustedError(RuntimeError):
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params,
-                 backend: DecodeBackend | None = None,
+                 backend: DecodeBackend | None = None, health=None,
                  metrics: obs_metrics.Registry | None = None,
                  tracer: Tracer | None = None, device="cuda"):
         self.cfg = cfg
         self.scfg = scfg
+        self._params = params                  # kept for backend rebuilds
         self.metrics = metrics if metrics is not None \
             else obs_metrics.Registry()
         self.tracer = tracer if tracer is not None else NullTracer()
@@ -59,10 +66,34 @@ class ServeEngine:
         self.generator = torch.Generator(device=self.backend.device)
         self.generator.manual_seed(scfg.seed)
         self._tick = 0
+        self.monitor = None
+        if health is not None:
+            from repro_torch.serve.health import HealthMonitor
+            self.monitor = HealthMonitor(self, health)
+
+    @property
+    def max_batch(self) -> int:
+        return self.scfg.max_batch
+
+    @property
+    def max_seq(self) -> int:
+        return self.scfg.max_seq_len
 
     @property
     def pending(self) -> list:
         return self.sched.pending
+
+    @property
+    def params(self):
+        return self.backend.params
+
+    @property
+    def cache(self):
+        return self.backend.cache
+
+    @property
+    def model(self):
+        return self.backend.model
 
     # ------------------------------------------------------------- client
     def submit(self, prompt, max_new_tokens: int = 16) -> int:
@@ -99,17 +130,37 @@ class ServeEngine:
             int(np.sum(sampling)))
 
     def step(self):
-        """One engine tick = one backend decode step for all slots."""
+        """One engine tick = one backend decode step for all slots (under
+        the health monitor's guard when one is configured)."""
         self._tick += 1
         self.metrics.counter("repro_ticks_total", "engine ticks run").inc()
         with self.tracer.span("tick", cat="serve",
                               args={"tick": self._tick}), \
                 self.metrics.histogram("repro_tick_latency_seconds",
                                        "whole-tick wall time").time():
+            if self.monitor is not None:
+                return self.monitor.guarded_step()
             tokens, active, sampling = self.sched.plan()
             with self.tracer.span("decode", cat="serve"):
                 logits = self.backend.step(tokens, active)
             self._sample_and_commit(logits, sampling)
+
+    def export_observability(self, metrics_json=None, metrics_prom=None,
+                             trace_out=None) -> None:
+        """Write metrics (JSON and/or Prometheus text) and the Chrome
+        trace. Folds the backend's link telemetry into the registry as
+        ``repro_link_<field>_total`` counters first, so snapshots are
+        self-contained."""
+        for k, v in self.backend.link_stats().items():
+            c = self.metrics.counter(f"repro_link_{k}_total",
+                                     "queue telemetry (LinkStats)")
+            c.value = float(v)                 # totals, not deltas
+        if metrics_json:
+            self.metrics.dump_json(metrics_json)
+        if metrics_prom:
+            self.metrics.dump_prometheus(metrics_prom)
+        if trace_out:
+            self.tracer.dump(trace_out)
 
     def run(self, max_ticks: int = 10_000) -> int:
         """Drive until all submitted requests complete. Returns #ticks.

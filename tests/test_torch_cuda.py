@@ -624,3 +624,77 @@ def test_cuda_train_step_ring_vs_dense(cuda):
     for x, y in zip(opt.tree_leaves(ring["params"]),
                     opt.tree_leaves(dense["params"])):
         torch.testing.assert_close(x, y, rtol=0, atol=2 * 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# serving observers: checked links, telemetry, the probe
+# ---------------------------------------------------------------------------
+
+
+def _smoke_ring_backend(cuda, **kw):
+    from repro_torch.configs import ServeConfig, get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.sharded_cache import RingShardedBackend
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = build_model(cfg).init(0, device=cuda)
+    scfg = ServeConfig(max_batch=4, max_seq_len=64, prefill_chunk=16)
+    return RingShardedBackend(cfg, scfg, params, 4, "qlr", device=cuda, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_checked_telemetry_serving_launches_as_plain(cuda):
+    """Checked links, the probe and telemetry launch no kernel of their
+    own and change no value: per prefill and per decode step both kernels
+    launch exactly as in plain serving, with bit-identical logits."""
+    import numpy as np
+    runs = []
+    for observed in (False, True):
+        be = _smoke_ring_backend(cuda, checked=observed, telemetry=observed)
+        launches, logits = [], []
+        for call in ("prefill", "decode", "decode"):
+            before = (fk.FLASH_CARRY.launches, mk.TILE_MATMUL.launches)
+            if call == "prefill":
+                be.prefill(1, np.arange(1, 12, dtype=np.int32))
+            else:
+                logits.append(be.step(np.full((4, 1), 3, np.int32),
+                                      np.ones(4, bool)).clone())
+            torch.cuda.synchronize()
+            launches.append((fk.FLASH_CARRY.launches - before[0],
+                             mk.TILE_MATMUL.launches - before[1]))
+        runs.append((launches, logits))
+        if observed:
+            assert be.link_health() == {"tag_errors": 0, "csum_errors": 0}
+            assert be.link_stats()["pushes"] > 0
+    (plain, plain_logits), (seen, seen_logits) = runs
+    assert plain == seen and plain[0][0] > 0 and plain[0][1] > 0
+    assert all(f > 0 for f, _ in plain)
+    for a, b in zip(plain_logits, seen_logits):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_corrupt_fault_trips_the_probe_at_its_site(cuda):
+    """A corrupt fault at (hop 1, PE 2) trips the checked stream on the
+    card at that (PE, hop) only, in the checksum column, and the backend's
+    probe reports one checksum error for the step."""
+    import numpy as np
+    from repro_torch.core import faults, queues
+    from repro_torch.core import topology as tp
+    payload = torch.arange(16, dtype=torch.float32, device=cuda) \
+        .reshape(4, 4) + 1.0
+    spec = faults.FaultSpec("corrupt", hop=1, device=2)
+    for mode in queues.MODES:
+        with faults.inject(spec):
+            _, _, health = queues.stream(
+                tp.ring("model", 4), payload, 4,
+                lambda s, b, t: s + b.sum(dim=1),
+                torch.zeros(4, device=cuda), mode, checked=True)
+        want = torch.zeros(4, 4, 2, dtype=torch.int32, device=cuda)
+        want[2, 1, 1] = 1
+        assert torch.equal(health, want), mode
+    be = _smoke_ring_backend(cuda, checked=True)
+    with faults.inject(spec):
+        be.step(np.ones((4, 1), np.int32), np.ones(4, bool))
+    assert be.link_health() == {"tag_errors": 0, "csum_errors": 1}
+    be.step(np.ones((4, 1), np.int32), np.ones(4, bool))
+    assert be.link_health() == {"tag_errors": 0, "csum_errors": 0}
