@@ -2,8 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port: build, check and time every kernel
 on the card, serve qwen3-0.6b at full width on the emulated ring, run the
 paper's DSP suite on an emulated 256-PE cluster, prefill and serve
-mamba2-1.3b at full width and depth, and train qwen3-0.6b at full width
-and depth on the ring.
+mamba2-1.3b at full width and depth, train qwen3-0.6b at full width and
+depth on the ring, and run mixtral-8x22b's MoE family and the 2-D grid
+schedules at full width.
 
     python3 chip_smoke.py
 
@@ -74,7 +75,22 @@ non-zero before the result lines are printed:
    clean run force-degraded at the same tick; (d) decode-tick wall ms and
    tokens/s of (b)'s runs, the observers' own costs alone (the snapshot
    clone between CUDA events, the probe on the host clock), and the
-   paper's utilization model over the launcher run's counters.
+   paper's utilization model over the launcher run's counters;
+11. the MoE family and the grid schedules: (a) mixtral-8x22b at full
+   width, 4 of 56 layers, bf16, seed 0, ring of 4 in qlr: ``prefill`` of
+   2 x 8192 tokens (the 4096 window bites), 3 timed calls, each launching
+   15 ``tile_matmul`` (QKV ring 12, the expert FFN 3 over all experts)
+   and 4 ``flash_carry`` a layer, finite logits, profiled; (b) 2 layers,
+   fp32, 1 x 1024: the ring in qlr, xqueue and sw on ``ring`` and
+   ``cannon_grid`` against the dense path (logits 2e-3, aux 1e-6, modes
+   bit for bit), and layer 0's MoE in the ring harness's four modes
+   against the dense dispatch; (c) 2 layers, bf16, 1 x 2048, remat
+   "full": one loss and backward, finite, launches as reckoned; (d)
+   ``ServeEngine`` over the ring and dense backends, 4 layers, the
+   launcher's 8 prompts: the same greedy tokens; (e) qwen3-0.6b prefill
+   (4 layers, fp32) on torus2d and cannon_grid rings of 4 and 8 against
+   the ring, and Cannon 8192^3 with the one-hop grid skew against the
+   masked skew (values bit for bit, 2 + 2(n-1) hops against 4(n-1)).
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -103,6 +119,9 @@ CHUNK = 256
 TRAIN_BATCH = 8                    # phase 9: 8 x 1024 tokens a step
 TRAIN_SEQ = 1024
 TRAIN_STEPS = 6                    # the first is warm-up
+MOE_BATCH, MOE_SEQ = 2, 8192       # phase 11: mixtral prefill, 2 x 8192
+MOE_LAYERS = 4                     # of 56, at full width
+MOE_WINDOW = 4096                  # mixtral's sliding window
 # profiler ranges around the twin backwards of the two autograd.Functions
 BACKWARD_LABELS = ("flash_carry_backward", "tile_matmul_backward")
 
@@ -276,7 +295,7 @@ def flash_cases(torch, fk, dev):
     s_l = CHUNK // N_PE
     pe = torch.arange(N_PE, device=dev).repeat_interleave(BATCH)
 
-    def state(r, sq, fresh):
+    def state(r, sq, fresh, h=h):
         m = torch.full((r, h, sq), -1e30, device=dev) if fresh else \
             torch.randn(r, h, sq, generator=g, device=dev)
         l = torch.zeros(r, h, sq, device=dev) if fresh else \
@@ -342,6 +361,36 @@ def flash_cases(torch, fk, dev):
         args=(qt, kt, vt, *state(t_rows, t_l, fresh=True), 0 * t_pe,
               0 * t_pe, big_t, None),
         opts=dict(causal=True, window=0, normalize=True, out_dtype=bf))
+    # mixtral-8x22b prefill on the ring of 4 (phase 11): 2 x 8192 tokens,
+    # so 2048 queries and keys a hop, 48 heads over 8 KV heads (a GQA
+    # group of 6), window 4096. At hop t PE d holds the block of PE
+    # d - t: at hop 2 PE 3's queries 6144-8191 meet keys 2048-4095 and the
+    # window boundary runs through the tile; at hop 3 they meet keys
+    # 0-2047, all behind the window (and every other PE's keys are ahead
+    # of its queries). After hop 0 (the causal diagonal) every row holds a
+    # real running max, as here, so dead tiles are skipped (the sentinel
+    # rows of the hops above, and card tests, cover the other case). The
+    # normalized form folds PE 2's and PE 3's hop-2 blocks from zero state
+    # (the rows where the window bites and most queries see a key).
+    mh, mkv = 48, 8
+    m_rows, m_l = N_PE * MOE_BATCH, MOE_SEQ // N_PE
+    m_pe = torch.arange(N_PE, device=dev).repeat_interleave(MOE_BATCH)
+    qm = torch.randn(m_rows, m_l, mh, hd, generator=g, device=dev).to(bf)
+    km = torch.randn(m_rows, m_l, mkv, hd, generator=g, device=dev).to(bf)
+    vm = torch.randn(m_rows, m_l, mkv, hd, generator=g, device=dev).to(bf)
+    big_m = torch.tensor(2 ** 30, device=dev).expand(m_rows)
+    for hop in (2, 3):
+        cases[f"moe_window_hop{hop}"] = dict(
+            args=(qm, km, vm, *state(m_rows, m_l, fresh=False, h=mh),
+                  m_pe * m_l, (m_pe - hop) % N_PE * m_l, big_m, None),
+            opts=dict(causal=True, window=MOE_WINDOW, normalize=False))
+    late = slice(m_rows // 2, m_rows)               # PEs 2 and 3
+    cases["moe_window_normalized"] = dict(
+        args=(qm[late], km[late], vm[late],
+              *state(m_rows // 2, m_l, fresh=True, h=mh), m_pe[late] * m_l,
+              (m_pe[late] - 2) % N_PE * m_l, big_m[late], None),
+        opts=dict(causal=True, window=MOE_WINDOW, normalize=True,
+                  out_dtype=bf))
     return cases
 
 
@@ -398,6 +447,17 @@ def sdpa_call(torch, q, k, v):
                                                       is_causal=True)
 
 
+def sdpa_masked_call(torch, q, k, v, mask):
+    """One PyTorch call computing the normalized attention of the same
+    q/k/v (GQA) under an explicit [B', Sq, T] key mask, as a yardstick."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rep = q.shape[2] // k.shape[2]
+    kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask[:, None])
+
+
 def check_flash(torch, fk, dev):
     out = []
     for name, case in flash_cases(torch, fk, dev).items():
@@ -412,7 +472,20 @@ def check_flash(torch, fk, dev):
         ok = err <= tol * max(1.0, max(float(w.float().abs().max())
                                        for w in want[2:]))
         lib = None
-        if opts.get("normalize"):
+        if opts.get("normalize") and opts["window"]:
+            # the same mask, compared on the queries that see any key
+            # (SDPA has no answer for a fully masked row)
+            q, k, v, *_, q_off, k_off, klen, _ = args
+            mask = fk.key_mask(q_off.int(), k_off.int(), klen.int(),
+                               q.shape[1], k.shape[1], causal=True,
+                               window=opts["window"])
+            call = sdpa_masked_call(torch, q, k, v, mask)
+            seen = mask.any(dim=-1)[:, None, :, None]
+            diff = torch.where(seen, call().float() - got[2].float(), 0.0)
+            ok = ok and float(diff.abs().max()) <= 2e-2
+            lib = time_ms(call, iters=5)
+            del mask, seen, diff
+        elif opts.get("normalize"):
             call = sdpa_call(torch, args[0], args[1], args[2])
             ok = ok and float((call().float() - got[2].float())
                               .abs().max()) <= 2e-2
@@ -428,7 +501,9 @@ def check_flash(torch, fk, dev):
                "ms": time_ms(lambda: fk.flash_carry_cuda(*args, **opts),
                              only="flash_carry_kernel"),
                "plain_ms": time_ms(lambda: fk.flash_carry_plain(*args,
-                                                                 **opts)),
+                                                                 **opts),
+                                   iters=3 if name.startswith("moe")
+                                   else 20),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                "twin_backward_ms": bwd,
                "shape": {"q": list(args[0].shape), "k": list(args[1].shape),
@@ -439,6 +514,7 @@ def check_flash(torch, fk, dev):
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"library {lib}, twin backward {bwd}" + ratio_text(rec))
         out.append(rec)
+        del got, want
     return out
 
 
@@ -473,6 +549,12 @@ def check_matmul(torch, mk, dev):
         "train_ffn_ag_hop": (rnd(N_PE, tm, d), rnd(N_PE, d, f), None, bf),
         "train_ffn_rs_carry_hop": (rnd(N_PE, tm, f), rnd(N_PE, f, d),
                                    rnd(N_PE, tm, d), bf),
+        # mixtral's expert FFN (phase 11): one launch a projection over the
+        # 8 experts, M = 2 x 2560 capacity slots each (2 x 8192 tokens)
+        "moe_expert_gate_up": (rnd(8, 5120, 6144), rnd(8, 6144, 16384),
+                               None, bf),
+        "moe_expert_down": (rnd(8, 5120, 16384), rnd(8, 16384, 6144), None,
+                            bf),
     }
     out = []
     for name, (a, b, c, odt) in cases.items():
@@ -501,7 +583,9 @@ def check_matmul(torch, mk, dev):
                "ok": err <= tol, "twin_backward_ms": bwd,
                "ms": time_ms(lambda: mk.matmul_cuda(a, b, c, odt),
                              only="tile_matmul_kernel"),
-               "plain_ms": time_ms(lambda: mk.matmul_plain(a, b, c, odt)),
+               "plain_ms": time_ms(lambda: mk.matmul_plain(a, b, c, odt),
+                                   iters=3 if name.startswith("moe")
+                                   else 20),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": time_ms(lib_call),
                "shape": {"a": list(a.shape), "b": list(b.shape),
@@ -1611,6 +1695,334 @@ def serve_launcher(torch, kernels, dev, card: str):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the MoE family (mixtral-8x22b) and the 2-D grid schedules
+# ---------------------------------------------------------------------------
+
+
+def moe_prefill(torch, kernels, dev, reps: int = 3):
+    """(a) mixtral-8x22b at full width, MOE_LAYERS layers, bf16, random
+    weights from seed 0, on the ring of 4 in qlr: ``prefill`` of
+    MOE_BATCH x MOE_SEQ tokens (the window bites past 4096). Returns the
+    result and the parameters (phase 11 (d) serves with them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = replace(get_config("mixtral-8x22b"), num_layers=MOE_LAYERS,
+                  systolic_mode="qlr")
+    model = build_model(cfg, n_pe=N_PE)
+    params = model.init(seed=0, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params["layers"]))
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)), device=dev)
+    # per layer, reckoned from the code: the QKV ring (N_PE hops x 3
+    # sinks) and the expert FFN (3 launches over all experts) launch the
+    # tile matmul, ring attention the flash hop N_PE times
+    expect = {"tile_matmul": cfg.num_layers * (3 * N_PE + 3),
+              "flash_carry": cfg.num_layers * N_PE}
+    with torch.inference_mode():
+        model.prefill(params, tokens)                # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, per_call = [], []
+        for _ in range(reps):
+            before = {k.name: k.launches for k in kernels}
+            t0 = time.perf_counter()
+            logits = model.prefill(params, tokens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_call.append({k.name: k.launches - before[k.name]
+                             for k in kernels})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for got in per_call:
+            assert got == expect, (got, expect)
+        assert logits.shape == (MOE_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        breakdown = profile(torch, lambda: model.prefill(params, tokens),
+                            top=8, warm=False)
+    wall = sorted(walls)[len(walls) // 2]
+    result = {"layers": cfg.num_layers, "batch": MOE_BATCH, "seq": MOE_SEQ,
+              "layer_params": n_params, "walls_s": walls, "wall_s": wall,
+              "tokens_per_s": MOE_BATCH * MOE_SEQ / wall,
+              "launches": {k: sum(c[k] for c in per_call)
+                           for k in per_call[0]},
+              "launches_per_call": per_call[-1],
+              "expected_per_call": expect, "peak_mem_gb": peak,
+              "breakdown": breakdown}
+    log(f"[moe-prefill] {json.dumps(result)}")
+    return result, cfg, params
+
+
+def moe_serve(torch, kernels, cfg, params, dev):
+    """(d) ``ServeEngine`` over ``RingShardedBackend(4, "qlr")`` and over
+    ``DecodeBackend``, the phase-11 model (4 layers, full width, bf16),
+    the launcher's 8 prompts, 16 new tokens each. The sliding window
+    keeps both from block prefill: prompts stream through the decode step
+    and no kernel is on this path. The two run in lockstep, the dense
+    backend's token committed to both; the ring backend must pick it
+    unless the dense top two logits are a near-tie."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded_cache import DecodeBackend, RingShardedBackend
+    cfg = replace(cfg, systolic_mode="baseline")
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=64, prefill_chunk=CHUNK)
+    prompts = launcher_prompts(cfg, LAUNCH_REQUESTS)
+    records, stats = {}, {}
+    for name in ("dense", "ring"):
+        backend = RingShardedBackend(cfg, scfg, params, N_PE, "qlr",
+                                     device=dev) if name == "ring" \
+            else DecodeBackend(cfg, scfg, params, device=dev)
+        assert backend.prefill_len(11) == 0, "sliding window: no prefill"
+        eng = ServeEngine(cfg, scfg, params, backend=backend, device=dev)
+        reqs = [eng.sched.submit(p, LAUNCH_NEW) for p in prompts]
+        commit = records.get("dense")
+        rec = []
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.sched.busy:
+            eng._admit()
+            toks, active, sampling = eng.sched.plan()
+            logits = eng.backend.step(toks, active).float().cpu().numpy()
+            nxt = logits.argmax(-1) if commit is None else \
+                commit[len(rec)][2]
+            eng.sched.commit(sampling, nxt)
+            rec.append((sampling, logits, nxt))
+        seconds = time.perf_counter() - t0
+        launched = {k.name: k.launches - before[k.name] for k in kernels}
+        assert all(r.status == "done" and len(r.out_tokens) == LAUNCH_NEW
+                   for r in reqs), name
+        assert not any(launched.values()), (name, launched)
+        records[name] = rec
+        stats[name] = {"ticks": len(rec), "seconds": seconds,
+                       "tokens_per_s": len(reqs) * LAUNCH_NEW / seconds,
+                       "launches": launched}
+    sampled = ties = same = 0
+    for (s, lg, _), (rs, rlg, rtok) in zip(records["ring"], records["dense"]):
+        assert (s == rs).all()
+        for b in np.where(s)[0]:
+            sampled += 1
+            if lg[b].argmax() == rtok[b]:
+                same += 1
+                continue
+            gap = rlg[b].max() - np.partition(rlg[b], -2)[-2]
+            assert gap < 5e-3 * max(1.0, abs(rlg[b].max())), (b, gap)
+            ties += 1
+    result = {"requests": len(prompts), "sampled": sampled,
+              "same_tokens": same, "near_ties": ties, **stats}
+    log(f"[moe-serve] {json.dumps(result)}")
+    assert len(records["ring"]) == len(records["dense"]) and ties <= 1
+    return result
+
+
+def moe_parity(torch, kernels, dev):
+    """(b) 2 layers of mixtral-8x22b at full width, fp32, 1 x 1024 tokens:
+    the ring in qlr, xqueue and sw on ``ring`` and on ``cannon_grid``
+    against the dense path (last logits within 2e-3 of their scale, aux
+    within 1e-6), the modes bit for bit; and layer 0's MoE alone in the
+    ring harness's four modes, ``baseline`` (the multicast form) included,
+    against the dense dispatch (1e-4 of its scale)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ring_moe
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.common import apply_norm, lm_logits
+    cfg = replace(get_config("mixtral-8x22b"), num_layers=2,
+                  dtype="float32", param_dtype="float32")
+    params = build_model(cfg).init(seed=1, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (1, 1024)), device=dev)
+
+    def run(mode, topo, n_pe):
+        c = replace(cfg, systolic_mode=mode, systolic_topology=topo)
+        model = build_model(c, n_pe=n_pe)
+        with torch.inference_mode():
+            x, aux = model.hidden_states(params, tokens)
+            return lm_logits(params["head"], params["embed"], x[:, -1],
+                             c), aux
+
+    want, want_aux = run("baseline", "ring", 0)
+    scale = max(1.0, float(want.abs().max()))
+    out = {"launches_per_ring_call": {}}
+    for topo in ("ring", "cannon_grid"):
+        got = {}
+        for mode in ("qlr", "xqueue", "sw"):
+            before = {k.name: k.launches for k in kernels}
+            logits, aux = got[mode] = run(mode, topo, N_PE)
+            out["launches_per_ring_call"] = {
+                k.name: k.launches - before[k.name] for k in kernels}
+            err = float((logits - want).abs().max()) / scale
+            daux = abs(float(aux) - float(want_aux))
+            out[f"{topo}_{mode}"] = {"logits_rel_err": err, "aux_err": daux}
+            log(f"[moe-parity] {topo} {mode}: last logits rel err "
+                f"{err:.3e} (tol 2e-3), aux {float(aux):.6f} (dense "
+                f"{float(want_aux):.6f}, err {daux:.1e}, tol 1e-6)")
+            assert err <= 2e-3 and daux <= 1e-6, (topo, mode, err, daux)
+            assert bool(torch.isfinite(logits).all())
+        for mode in ("xqueue", "sw"):
+            assert torch.equal(got[mode][0], got["qlr"][0]), (topo, mode)
+            assert torch.equal(got[mode][1], got["qlr"][1]), (topo, mode)
+        out[f"{topo}_modes_bit_identical"] = True
+    # layer 0's MoE in the ring harness, the multicast baseline included
+    lp = params["layers"][0]
+    with torch.inference_mode():
+        h = apply_norm(lp["norm2"], torch.randn(
+            1, 1024, cfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(13)), cfg)
+        y_dense, _ = moe.apply_moe(lp["moe"], h, cfg)
+        logits = h @ lp["moe"]["router"]
+        w, idx, _ = moe._topk_routing(logits, cfg)
+        pos = moe._positions_in_expert(idx, cfg.num_experts)
+        cap = moe.expert_capacity(cfg, 1024)
+        ys = {}
+        for mode in ring_moe.MODES:
+            ys[mode] = ring_moe.systolic_ring_moe(
+                h, idx, pos, w, lp["moe"]["w_gate"], lp["moe"]["w_up"],
+                lp["moe"]["w_down"], cap, N_PE, mode)
+            err = float((ys[mode] - y_dense).abs().max()) / max(
+                1.0, float(y_dense.abs().max()))
+            out[f"layer_ring_moe_{mode}"] = err
+            log(f"[moe-parity] layer 0 ring_moe {mode}: rel err {err:.3e} "
+                f"(tol 1e-4)")
+            assert err <= 1e-4, (mode, err)
+    for mode in ("sw", "xqueue"):
+        assert torch.equal(ys[mode], ys["qlr"]), mode
+    return out
+
+
+def moe_train(torch, kernels, dev):
+    """(c) 2 layers of mixtral-8x22b at full width, bf16, 1 x 2048 tokens,
+    ring of 4 in qlr, remat "full": one ``loss`` and its backward (no
+    optimizer step: AdamW's fp32 state would not fit at full width). The
+    loss and every gradient finite, aux > 0, the launches as reckoned
+    (forward plus the remat recompute), the twins' backward device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    cfg = replace(get_config("mixtral-8x22b"), num_layers=2,
+                  systolic_mode="qlr", remat="full")
+    model = build_model(cfg, n_pe=N_PE)
+    params = model.init(seed=2, device=dev)
+    raw = np.random.default_rng(14).integers(0, cfg.vocab_size, (1, 2049))
+    batch = {"tokens": torch.as_tensor(raw[:, :-1], device=dev),
+             "targets": torch.as_tensor(raw[:, 1:], device=dev)}
+    expect = {"tile_matmul": 2 * cfg.num_layers * (3 * N_PE + 3),
+              "flash_carry": 2 * cfg.num_layers * N_PE}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k.name: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    loss, metrics, grads = step_lib.value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k.name: k.launches - before[k.name] for k in kernels}
+    leaves = opt.tree_leaves(grads)
+    assert bool(torch.isfinite(loss)), float(loss)
+    assert all(bool(torch.isfinite(g).all()) for g in leaves)
+    assert float(metrics["aux"]) > 0, float(metrics["aux"])
+    assert launched == expect, (launched, expect)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del grads, leaves
+    breakdown = profile(torch, lambda: step_lib.value_and_grad(
+        model, params, batch), top=8, warm=False, labels=BACKWARD_LABELS)
+    result = {"layers": cfg.num_layers, "tokens": 2048,
+              "loss": float(loss), "ce": float(metrics["ce"]),
+              "aux": float(metrics["aux"]), "seconds": seconds,
+              "launches": launched, "expected": expect, "peak_mem_gb": peak,
+              "breakdown": breakdown}
+    log(f"[moe-train] {json.dumps(result)}")
+    return result
+
+
+def grid_prefill(torch, kernels, dev):
+    """(e) qwen3-0.6b ``prefill`` at full width, 4 layers, fp32, 2 x 512
+    tokens, on rings of 4 (2x2 fold) and 8 (2x4) scheduled as torus2d and
+    cannon_grid in sw, xqueue and qlr, against the +1 ring in qlr: last
+    logits within 2e-3 of their scale, the modes bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("qwen3-0.6b"), num_layers=4, dtype="float32",
+                  param_dtype="float32")
+    params = build_model(cfg).init(seed=3, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (2, 512)), device=dev)
+
+    def run(n, mode, topo):
+        model = build_model(replace(cfg, systolic_mode=mode,
+                                    systolic_topology=topo), n_pe=n)
+        with torch.inference_mode():
+            return model.prefill(params, tokens)
+
+    out, launches = {}, {k.name: 0 for k in kernels}
+    per_call = {}
+    for n in (4, 8):
+        want = run(n, "qlr", "ring")
+        scale = max(1.0, float(want.abs().max()))
+        for topo in ("torus2d", "cannon_grid"):
+            got = {}
+            for mode in ("sw", "xqueue", "qlr"):
+                before = {k.name: k.launches for k in kernels}
+                got[mode] = run(n, mode, topo)
+                per_call[n] = {k.name: k.launches - before[k.name]
+                               for k in kernels}
+                for k in kernels:
+                    launches[k.name] += per_call[n][k.name]
+                err = float((got[mode] - want).abs().max()) / scale
+                out[f"n{n}_{topo}_{mode}"] = err
+                assert err <= 2e-3, (n, topo, mode, err)
+            same = all(torch.equal(got[m], got["qlr"])
+                       for m in ("sw", "xqueue"))
+            log(f"[grid] qwen3 prefill ring of {n} on {topo}: rel err vs "
+                f"ring {max(out[f'n{n}_{topo}_{m}'] for m in got):.3e} "
+                f"(tol 2e-3), modes bit for bit {same}")
+            assert same, (n, topo)
+    assert all(launches.values()), launches
+    return {"errors": out, "launches": launches,
+            "launches_per_call": per_call}
+
+
+def cannon_grid_skew(torch, kernels, dev, reps: int = 2):
+    """(e) the DSP suite's Cannon 8192^3 on the 16x16 fold with
+    ``skew="grid"`` in the four modes: values bit for bit those of
+    ``skew="masked"``, hops per call 2 + 2(n-1) against 4(n-1) (from the
+    link telemetry's pushes), wall ms per call of both, in turns (masked,
+    grid, grid, masked)."""
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.obs import linkstats
+    n, d = 16, CARD["matmul"]
+    g = torch.Generator(device=dev).manual_seed(16)
+    a = torch.randn(d, d, generator=g, device=dev)
+    b = torch.randn(d, d, generator=g, device=dev)
+    rows, launches = [], {k.name: 0 for k in kernels}
+    for mode in DSP_MODES:
+        ys, hops, walls = {}, {}, {"masked": [], "grid": []}
+        for skew in ("masked", "grid"):
+            before = {k.name: k.launches for k in kernels}
+            with linkstats.collect() as sc:
+                ys[skew] = cm.systolic_cannon(a, b, n, mode, skew=skew)
+            torch.cuda.synchronize()
+            for k in kernels:
+                launches[k.name] += k.launches - before[k.name]
+            hops[skew] = sc.stats.pushes // (n * n)
+        assert torch.equal(ys["grid"], ys["masked"]), mode
+        want = {"masked": 0, "grid": 0} if mode == "baseline" else \
+            {"masked": 4 * (n - 1), "grid": 2 + 2 * (n - 1)}
+        assert hops == want, (mode, hops, want)
+        del ys
+        for skew in ("masked", "grid", "grid", "masked"):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                cm.systolic_cannon(a, b, n, mode, skew=skew)
+            torch.cuda.synchronize()
+            walls[skew].append((time.perf_counter() - t0) / reps * 1e3)
+        rows.append({"mode": mode, "hops_per_call": hops,
+                     "wall_ms": walls})
+        log(f"[cannon-grid] {d}^3 16x16 {mode}: hops per call {hops}, "
+            f"wall ms masked {walls['masked']} grid {walls['grid']}")
+    return {"rows": rows, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1688,6 +2100,26 @@ def main() -> int:
                               card)
     log(f"[launcher] phase 10 {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    main_path = (fk.FLASH_CARRY, mk.TILE_MATMUL)
+    for k in kernels.ALL:
+        k.launches = 0
+    mprefill, mcfg, mparams = moe_prefill(torch, main_path, dev)
+    moeserve = moe_serve(torch, main_path, mcfg, mparams, dev)
+    del mparams
+    torch.cuda.empty_cache()
+    mparity_launch0 = {k.name: k.launches for k in main_path}
+    mparity = moe_parity(torch, main_path, dev)
+    mparity_launches = {k.name: k.launches - mparity_launch0[k.name]
+                        for k in main_path}
+    torch.cuda.empty_cache()
+    mtrain = moe_train(torch, main_path, dev)
+    torch.cuda.empty_cache()
+    gprefill = grid_prefill(torch, main_path, dev)
+    cgrid = cannon_grid_skew(torch, kernels.ALL, dev)
+    log(f"[moe-grid] phase 11 {time.perf_counter() - t0:.1f} s")
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
@@ -1695,7 +2127,15 @@ def main() -> int:
                    "mamba_prefill": prefill["launches"][kern.name],
                    "mamba_serve": mserve["launches"][kern.name],
                    "train": train["launches"].get(kern.name, 0),
-                   "serve_launcher": launcher["launches"].get(kern.name, 0)}
+                   "serve_launcher": launcher["launches"].get(kern.name, 0),
+                   "moe_prefill": mprefill["launches"].get(kern.name, 0),
+                   "moe_parity": mparity_launches.get(kern.name, 0),
+                   "moe_train": mtrain["launches"].get(kern.name, 0),
+                   "moe_serve": moeserve["dense"]["launches"].get(
+                       kern.name, 0)
+                   + moeserve["ring"]["launches"].get(kern.name, 0),
+                   "grid_prefill": gprefill["launches"].get(kern.name, 0),
+                   "cannon_grid": cgrid["launches"][kern.name]}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -1707,6 +2147,20 @@ def main() -> int:
                 prefill["launches_per_call"][kern.name]
         if train["launches_per_step"].get(kern.name):
             per_call["train_step"] = train["launches_per_step"][kern.name]
+        # phase 11: a prefill call, a ring call of the parity check, a
+        # training step, a decode step, a grid prefill on 4 PEs (and 8),
+        # a Cannon call
+        per_call["moe_prefill"] = mprefill["launches_per_call"].get(
+            kern.name, 0)
+        per_call["moe_parity"] = \
+            mparity["launches_per_ring_call"].get(kern.name, 0)
+        per_call["moe_train"] = mtrain["launches"].get(kern.name, 0)
+        per_call["moe_serve"] = 0
+        per_call["grid_prefill"] = \
+            gprefill["launches_per_call"][4].get(kern.name, 0)
+        per_call["grid_prefill_8pe"] = \
+            gprefill["launches_per_call"][8].get(kern.name, 0)
+        per_call["cannon_grid"] = cgrid["launches"][kern.name] // 8
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path.values()),
@@ -1733,7 +2187,10 @@ def main() -> int:
               "src/repro/kernels/fft/kernel.py:58", ffts, "fft256_B4096"),
     ], "serve": served, "dsp": dsp, "mamba_prefill": prefill,
         "mamba_parity": parity, "mamba_serve": mserve, "train": train,
-        "train_parity": tparity, "serve_launcher": launcher}
+        "train_parity": tparity, "serve_launcher": launcher,
+        "moe_prefill": mprefill, "moe_parity": mparity, "moe_train": mtrain,
+        "moe_serve": moeserve, "grid_prefill": gprefill,
+        "cannon_grid": cgrid}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

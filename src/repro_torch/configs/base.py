@@ -1,9 +1,9 @@
 """Configuration dataclasses of the port.
 
-The fields the ported slices read (dense serving and training, Mamba2),
-with the reference's names and defaults (``repro/configs/base.py``), so a
-configuration reads the same in both packages. Fields of families the port
-does not cover yet (MoE, MLA, hybrid, enc-dec, VLM) are left out until
+The fields the ported slices read (dense serving and training, Mamba2,
+MoE), with the reference's names and defaults (``repro/configs/base.py``),
+so a configuration reads the same in both packages. Fields of families the
+port does not cover yet (MLA, hybrid, enc-dec, VLM) are left out until
 their slice lands.
 """
 from __future__ import annotations
@@ -40,7 +40,19 @@ class ModelConfig:
 
     # attention flavor
     attention_type: str = "gqa"    # gqa only in this slice
-    sliding_window: int = 0        # 0 -> full attention
+    sliding_window: int = 0        # 0 -> full attention (mixtral: 4096)
+
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    d_ff_expert: int = 0
+    first_k_dense: int = 0         # leading dense layers (DeepSeek-V2: 1)
+    d_ff_dense: int = 0            # FF width of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.001
+    # split each expert's FFN into k f-slices routed as independent experts
+    moe_subexperts: int = 1
 
     # SSM (Mamba2 / SSD)
     ssm_state: int = 0
@@ -62,7 +74,8 @@ class ModelConfig:
     # Every ring hop's local consume is one call of a kernel wrapper (flash
     # hop / tile matmul): the CUDA kernel on the card, its twin on the CPU.
     systolic_mode: str = "baseline"
-    # Schedule over the ring: "ring" | "snake_fold", optionally ":RxC".
+    # Schedule over the ring: "ring" | "snake_fold" | "torus2d" |
+    # "cannon_grid", optionally ":RxC".
     systolic_topology: str = "ring"
 
     # activation recomputation of each block in the training backward

@@ -10,14 +10,19 @@ global tensors and do the split that ``shard_map`` does in the reference.
 Link modes: sw / xqueue / qlr (core/queues.py), plus ``baseline``: one
 all-gather and one local product (the pure shared-memory model).
 
+The AG and RS rings run on any full-coverage schedule: a single-cycle
+Topology or a 2-D ``GridSchedule`` (torus2d, cannon_grid), whose per-hop
+permutations the source and dest tables follow.
+
 ``cannon_matmul`` is the 2-D output-stationary form (the paper's matmul
 kernel): a square grid folded from the PE axis, A tiles streaming left
 along the rows and B tiles up along the columns.
 
 Telemetry (``obs/linkstats.py``) counts what the reference counts: the
 baseline's all-gathers and reduce-scatter as multicast loads, every hop as
-queue traffic, the masked skew as its n-1 hops per operand. Hops carry
-the reference's sequence numbers, so a fault spec reaches the same hops.
+queue traffic, the masked skew as its n-1 hops per operand, the grid skew
+as one. Hops carry the reference's sequence numbers, so a fault spec
+reaches the same hops.
 """
 from __future__ import annotations
 
@@ -29,24 +34,36 @@ import torch.nn.functional as F
 from repro_torch.core import queues
 from repro_torch.core import topology as topo_lib
 from repro_torch.core.queues import table_cache
-from repro_torch.core.topology import Topology, ring, torus_shift
+from repro_torch.core.topology import (
+    Topology,
+    cannon_skew,
+    ring,
+    torus_shift,
+)
 from repro_torch.kernels.systolic_matmul.ops import tile_matmul
 from repro_torch.obs import linkstats
 
 
+def _full_coverage(topo) -> None:
+    """A plain Topology must be a single full cycle (a GridSchedule covers
+    every shard by construction), as the reference asserts."""
+    if isinstance(topo, Topology) and not topo_lib.is_cycle(topo):
+        raise ValueError(f"{topo.name}: topology must be a single full cycle")
+
+
 @table_cache(maxsize=64)
-def _source_table(topo: Topology, device) -> torch.Tensor:
+def _source_table(topo, device) -> torch.Tensor:
     """[n, n] long: entry (d, t) = origin shard PE d holds at consume t.
     Cached per device: a host-to-device copy would stall the stream."""
-    if not topo_lib.is_cycle(topo):
-        raise ValueError(f"{topo.name}: topology must be a single full cycle")
+    _full_coverage(topo)
     return torch.as_tensor(topo_lib.source_table(topo), dtype=torch.long,
                            device=device)
 
 
 @table_cache(maxsize=64)
-def _dest_table(topo: Topology, device) -> torch.Tensor:
+def _dest_table(topo, device) -> torch.Tensor:
     """[n, n] long ``topology.dest_table``, cached per device."""
+    _full_coverage(topo)
     return torch.as_tensor(topo_lib.dest_table(topo), dtype=torch.long,
                            device=device)
 
@@ -56,7 +73,7 @@ def _chunks(x, n: int):
     return x.reshape(x.shape[0], -1, n, x.shape[-2] // n, x.shape[-1])
 
 
-def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo: Topology,
+def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo,
                    mode: str = "qlr"):
     """All-gather(x) @ w_i for each w_i, streamed around a ring.
 
@@ -99,7 +116,7 @@ def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo: Topology,
     return state
 
 
-def ring_matmul_rs(x, w, topo: Topology, mode: str = "qlr"):
+def ring_matmul_rs(x, w, topo, mode: str = "qlr"):
     """(x @ w) reduce-scattered over the sequence dim, as a ring of
     travelling accumulators.
 
@@ -219,18 +236,16 @@ def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
 
     skew="masked" rotates A row r left r times and B column c up c times
     with n-1 masked hops each, over the requested link mode. skew="grid"
-    (one re-pointed grid hop per operand) waits for the 2-D grid
-    schedules. ``baseline`` is the shared-memory form: no hops; at step t
-    each PE gathers the tiles it needs, so it runs the same n launches on
-    the same operands, and every mode gives identical values.
+    re-points the queues to the ``topology.cannon_skew`` permutations and
+    does the whole skew in ONE hop per operand (A's with sequence number
+    n-1, B's with n): 2 hops in place of 2(n-1), the same values.
+    ``baseline`` is the shared-memory form: no hops; at step t each PE
+    gathers the tiles it needs, so it runs the same n launches on the same
+    operands, and every mode gives identical values.
     """
     if rows != cols:
         raise ValueError("Cannon requires a square grid")
-    if skew == "grid":
-        raise NotImplementedError(
-            "cannon_matmul(skew='grid') needs the 2-D grid schedules, "
-            "which are not ported yet")
-    if skew != "masked":
+    if skew not in ("masked", "grid"):
         raise ValueError(f"unknown skew {skew!r}")
     queues.check_mode(mode, baseline=True)
     n = rows
@@ -244,7 +259,13 @@ def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
             acc = tile_matmul(a_local.index_select(0, a_src[t]),
                               b_local.index_select(0, b_src[t]), acc)
         return acc
-    if not preskewed:
+    if not preskewed and skew == "grid":
+        a_local = queues.hop(cannon_skew(row_topo.axis, rows, cols,
+                                         which="rows"), a_local, mode,
+                             t=n - 1)
+        b_local = queues.hop(cannon_skew(row_topo.axis, rows, cols,
+                                         which="cols"), b_local, mode, t=n)
+    elif not preskewed:
         pe = range(n * n)
         a_local = _masked_rot(a_local, row_topo, tuple(d // cols for d in pe),
                               n, mode, t0=n - 1)
@@ -279,13 +300,14 @@ def cannon_untile(tiles, rows: int, cols: int):
         .reshape(rows * m, cols * n)
 
 
-def systolic_cannon(a, b, n: int, mode: str = "qlr"):
+def systolic_cannon(a, b, n: int, mode: str = "qlr", skew: str = "masked"):
     """A @ B by Cannon on an n x n fold of n*n PEs: the tile layout that
-    ``shard_map``'s specs give in the reference benchmarks, the masked
-    skew, and the re-assembly of the C tiles. a: [M, K], b: [K, N]."""
+    ``shard_map``'s specs give in the reference benchmarks, the skew
+    (``masked`` or ``grid``), and the re-assembly of the C tiles.
+    a: [M, K], b: [K, N]."""
     left, up = cannon_topologies("pe", n, n)
     c = cannon_matmul(cannon_tiles(a, n, n), cannon_tiles(b, n, n), left,
-                      up, n, n, mode)
+                      up, n, n, mode, skew=skew)
     return cannon_untile(c, n, n)
 
 

@@ -41,6 +41,11 @@ Robustness and telemetry, as in the reference:
   every hop records its queue traffic; the stream drivers mute their hop
   loop and record the whole circuit once, as the reference records after
   its ``lax.scan``.
+
+2-D grid schedules (``topology.GridSchedule``: torus2d, cannon_grid) ride
+``stream`` too: hop ``t`` takes the schedule's own permutation
+``hops[t]``, and Cannon's skew hops once before consume 0 with sequence
+number ``n_steps``.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import faults
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import GridSchedule, Topology
 from repro_torch.obs import linkstats
 
 MODES = ("sw", "xqueue", "qlr")
@@ -269,44 +274,66 @@ def _fork(x):
             _rebuild(x, [b for _, b in pairs]))
 
 
-def stream(topo: Topology, x0, n_steps: int,
+def stream(topo, x0, n_steps: int,
            consume: Callable[[Any, Any, int], Any], state0,
            mode: str = "qlr", checked: bool = False, record_as=None):
     """Drive a systolic stream: per step, consume the current operand and
     forward it along the topology. ``consume(state, operand, t) -> state``.
     Returns (state, buffer after ``n_steps`` hops).
 
+    ``topo`` is a Topology or a ``GridSchedule``, whose hop ``t`` rides
+    ``hops[t]`` and whose skew, when it has one, hops once before consume
+    0 with sequence number ``n_steps`` (so a fault spec or a checked link
+    can target it); a grid needs ``n_steps == len(hops) == size``.
+
     checked=True: every hop rides the tag/checksum sidecar; returns
     (state, buf, health) with health int32 ``[n_pe, n_steps, 2]``, each
     PE's per-hop (tag_err, csum_err) flags (the reference's per-device
-    ``[n_steps, 2]``, stacked over PEs).
+    ``[n_steps, 2]``, stacked over PEs). A grid's skew health folds into
+    hop 0's row.
 
     Telemetry records the circuit once, as ``n_steps`` hops of ``x0``'s
-    queue set; ``record_as`` names another layout to count (a tensor or
-    tuple whose leaves have the shapes and types of the reference's queue
-    element, e.g. on the ``meta`` device) where the port carries the
-    element in another form.
+    queue set (and the skew hop, for a grid); ``record_as`` names another
+    layout to count (a tensor or tuple whose leaves have the shapes and
+    types of the reference's queue element, e.g. on the ``meta`` device)
+    where the port carries the element in another form.
     """
     check_mode(mode)
+    hops = [topo] * n_steps
+    skew = None
+    if isinstance(topo, GridSchedule):
+        if not n_steps == len(topo.hops) == topo.size:
+            raise ValueError(f"{topo.name}: a grid stream runs one hop per "
+                             f"PE ({topo.size}), not {n_steps}")
+        hops, skew = list(topo.hops), topo.skew
     buf, state = x0, state0
-    healths = []
+    healths, skew_health = [], None
     with linkstats.mute():
+        if skew is not None:        # Cannon's start offsets, before consume 0
+            buf = hop(skew, buf, mode, t=n_steps, checked=checked)
+            if checked:
+                buf, skew_health = buf
         for t in range(n_steps):
             to_consume, to_hop = _fork(buf)
             if mode == "qlr":       # the hop is issued before the consume
-                nxt = hop(topo, to_hop, mode, t=t, checked=checked)
+                nxt = hop(hops[t], to_hop, mode, t=t, checked=checked)
                 state = consume(state, to_consume, t)
             else:                   # the hop is serialized after it
                 state = consume(state, to_consume, t)
-                nxt = hop(topo, to_hop, mode, t=t, checked=checked)
+                nxt = hop(hops[t], to_hop, mode, t=t, checked=checked)
             if checked:
                 nxt, health = nxt
                 healths.append(health)
             buf = nxt
     health = torch.stack(healths, dim=1) if checked else None
-    linkstats.record_hops(x0 if record_as is None else record_as, n_steps,
-                          health=health)
+    counted = x0 if record_as is None else record_as
+    if skew is not None:            # the reference records every grid hop
+        linkstats.record_hops(counted, 1, health=skew_health)
+    linkstats.record_hops(counted, n_steps, health=health)
     if checked:
+        if skew_health is not None:
+            health = torch.cat([health[:, :1] + skew_health[:, None],
+                                health[:, 1:]], dim=1)
         return state, buf, health
     return state, buf
 
@@ -326,8 +353,13 @@ def stream_carry(topo: Topology, static0, carry0, n_steps: int,
     Returns (static, carry). checked=True rides the sidecar on both queue
     sets (static and carried halves are separate FIFOs through the same
     link) and returns (static, carry, health), health int32
-    ``[n_pe, n_steps, 2]``: per-hop error counts summed over the two."""
+    ``[n_pe, n_steps, 2]``: per-hop error counts summed over the two.
+    A grid schedule raises ``TypeError``: its elements need not return
+    home after n hops."""
     check_mode(mode)
+    if isinstance(topo, GridSchedule):
+        raise TypeError(f"{topo.name}: stream_carry needs a single-cycle "
+                        "Topology; decode rides ring or snake_fold only")
     static, carry = static0, carry0
     healths = []
     with linkstats.mute():

@@ -13,6 +13,10 @@ axis is folded into the kernel's batch rows, so each row carries its own
 query and key offsets. ``baseline`` all-gathers K/V (the shared-memory
 multicast) and makes one pass.
 
+Prefill runs on any full-coverage schedule, 2-D grids included (the
+online-softmax fold is arrival-order independent: masks are by position).
+Decode needs a single cycle and refuses a grid up front.
+
 Masked scores use the finite sentinel ``-1e30``: causal ring order
 delivers fully masked blocks first, and ``-inf`` would give NaN in
 ``exp(m - m_new)``.
@@ -29,14 +33,14 @@ import torch
 
 from repro_torch.core import queues
 from repro_torch.core.collective_matmul import _source_table
-from repro_torch.core.topology import Topology, ring
+from repro_torch.core.topology import GridSchedule, Topology, ring
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.obs import linkstats
 
 MODES = ("baseline",) + queues.MODES
 
 
-def ring_attention(q_local, k_local, v_local, topo: Topology,
+def ring_attention(q_local, k_local, v_local, topo,
                    mode: str = "qlr", *, causal: bool = True,
                    window: int = 0):
     """Systolic attention over one ring, every PE at once.
@@ -45,7 +49,8 @@ def ring_attention(q_local, k_local, v_local, topo: Topology,
                      (global positions ``my*sq + i``).
     k_local/v_local: [n, B, s_local, Kv, hd] — each PE's K/V shard, pushed
                      around the ring; at hop t PE d holds the shard of
-                     origin ``source_table[d, t]``.
+                     origin ``source_table[d, t]``. ``topo`` is a
+                     single-cycle Topology or a GridSchedule.
 
     Returns [n, B, sq, H, hd] fp32 — each PE's output for its query shard.
     """
@@ -105,7 +110,9 @@ def systolic_ring_attention(q, k, v, n_pe: int, mode: str = "qlr", *,
                             causal: bool = True, window: int = 0,
                             topo=None):
     """Ring attention over ``n_pe`` emulated PEs: sequence sharded, heads
-    whole. q: [B,S,H,hd], k/v: [B,S,Kv,hd]. Returns [B,S,H,hd] fp32."""
+    whole. q: [B,S,H,hd], k/v: [B,S,Kv,hd]. Returns [B,S,H,hd] fp32.
+    ``topo`` overrides the +1 ring with any schedule of ``n_pe`` PEs, a
+    2-D grid included."""
     topo = topo or ring("model", n_pe)
     if topo.size != n_pe:
         raise ValueError(f"topology of {topo.size} PEs for a ring of {n_pe}")
@@ -136,9 +143,13 @@ def ring_decode_attention(q_local, k_cache, v_cache, pos, topo: Topology,
               ``[d*s_loc, (d+1)*s_loc)`` of every row, read in place.
     pos:      [B] int — slot j is valid for row b iff j <= pos[b].
 
-    Returns [n, b_loc, 1, H, hd] fp32.
+    Returns [n, b_loc, 1, H, hd] fp32. A GridSchedule raises ``TypeError``
+    (the reference's ``stream_carry`` refuses one).
     """
     queues.check_mode(mode, baseline=True)
+    if isinstance(topo, GridSchedule):
+        raise TypeError(f"{topo.name}: ring decode needs a single-cycle "
+                        "Topology (ring or snake_fold)")
     n, b_loc, _, h, hd = q_local.shape
     bsz, s_all = k_cache.shape[:2]
     s_loc = s_all // n

@@ -2,10 +2,12 @@
 port's.
 
 The reference keeps a tree whose ``layers`` leaves are stacked along a
-leading layer dimension (``models/common.split_tree`` of its ``init``);
-the port keeps a list of per-layer dicts (dense: ``{norm1, norm2, attn,
-mlp}``; Mamba2: ``{norm, mixer}``). ``params_from_reference`` takes that
-tree with numpy leaves (``np.asarray`` of each value, bfloat16
+leading layer dimension (``models/common.split_tree`` of its ``init``),
+and an MoE model's ``first_k_dense`` leading dense layers in a second
+stack, ``dense_layers``; the port keeps one list of per-layer dicts, the
+dense layers first (dense: ``{norm1, norm2, attn, mlp}``; MoE: ``moe`` in
+place of ``mlp``; Mamba2: ``{norm, mixer}``). ``params_from_reference``
+takes that tree with numpy leaves (``np.asarray`` of each value, bfloat16
 included) so both packages compute the same function in the tests.
 ``state_from_reference`` / ``state_to_reference`` carry a whole train
 state, ``{"params", "opt": {"m", "v", "master", "step"}}``, whose
@@ -19,7 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.common import pdtype, resolve_device
 
-FP32_LEAVES = ("A_log", "D", "dt_bias")
+FP32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -56,21 +58,35 @@ def _from_reference(tree, dt, dev):
         return _tensor(_at(tree, index),
                        torch.float32 if name in FP32_LEAVES else dt, dev)
 
-    layers = tree["layers"]
-    n_layers = np.asarray(_first_leaf(layers)).shape[0]
+    def stack(group):
+        if group not in tree:
+            return []
+        n_layers = np.asarray(_first_leaf(tree[group])).shape[0]
+        return [convert(tree[group], i) for i in range(n_layers)]
+
     return {
         "embed": convert(tree["embed"]),
         "final_norm": convert(tree["final_norm"]),
         "head": convert(tree.get("head", {})),
-        "layers": [convert(layers, i) for i in range(n_layers)],
+        "layers": stack("dense_layers") + stack("layers"),
     }
+
+
+def layer_groups(layers) -> list[tuple[str, int]]:
+    """(the reference's stack, index in it) of each of the port's layers:
+    where MoE layers follow dense ones, the dense ones are
+    ``dense_layers``; otherwise every layer is in ``layers``."""
+    n_dense = (sum("moe" not in lp for lp in layers)
+               if any("moe" in lp for lp in layers) else 0)
+    return [("dense_layers", i) if i < n_dense else ("layers", i - n_dense)
+            for i in range(len(layers))]
 
 
 def params_from_reference(tree, cfg: ModelConfig, device="cuda"):
     """Reference value tree (numpy leaves) -> the port's parameters. Every
     leaf takes the parameter dtype except those the reference keeps fp32
     whatever it is (``FP32_LEAVES``: Mamba2's ``A_log``, ``D``,
-    ``dt_bias``)."""
+    ``dt_bias``; the MoE ``router``)."""
     return _from_reference(tree, pdtype(cfg), resolve_device(device))
 
 
@@ -101,13 +117,17 @@ def _zip_map(trees, fn):
 def params_to_reference(params):
     """The port's parameters -> the reference's layout, float32 numpy."""
     as_np = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
-    return {
+    out = {
         "embed": _map(params["embed"], as_np),
         "final_norm": _map(params["final_norm"], as_np),
         "head": _map(params["head"], as_np),
-        "layers": _zip_map(params["layers"],
-                           lambda *ls: np.stack([as_np(t) for t in ls])),
     }
+    groups = [g for g, _ in layer_groups(params["layers"])]
+    for group in dict.fromkeys(groups):
+        out[group] = _zip_map(
+            [lp for lp, g in zip(params["layers"], groups) if g == group],
+            lambda *ls: np.stack([as_np(t) for t in ls]))
+    return out
 
 
 def state_to_reference(state):

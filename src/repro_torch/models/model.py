@@ -1,8 +1,9 @@
 """Unified model interface: ``build_model(cfg, n_pe) -> model``.
 
-The dense family (``TransformerLM``: ``init``, ``prefill``, ``init_cache``,
-``prefill_into_cache``, ``decode_step``) and the ssm family (``MambaLM``:
-the same without ``prefill_into_cache``) are ported.
+The dense and moe families (``TransformerLM``: ``init``, ``prefill``,
+``loss``, ``init_cache``, ``prefill_into_cache``, ``decode_step``) and the
+ssm family (``MambaLM``: the same without ``prefill_into_cache``) are
+ported.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from repro_torch.models.zamba import MambaLM
 
 
 def build_model(cfg: ModelConfig, n_pe: int = 0):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg, n_pe=n_pe)
     if cfg.family == "ssm":
         if n_pe:

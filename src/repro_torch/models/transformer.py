@@ -1,10 +1,16 @@
-"""Decoder-only transformer LM, dense family (qwen3 / olmo-style backbones).
+"""Decoder-only transformer LM: the dense family (qwen3 / olmo-style
+backbones) and the MoE family (Mixtral; DeepSeek-style ``first_k_dense``).
 
-Mirrors the dense path of ``repro/models/transformer.py``. The reference
-scans stacked layer parameters; here ``params["layers"]`` is a list of
-per-layer dicts and the forward is a Python loop over it. The decode cache
-keeps the reference's stacked layout, ``cache["layers"][name]`` with a
-leading layer dimension, and each layer updates its slice in place.
+Mirrors the GQA paths of ``repro/models/transformer.py``. The reference
+scans stacked layer parameters (an MoE model keeps its ``first_k_dense``
+leading dense layers in a second stack, ``dense_layers``); here
+``params["layers"]`` is one list of per-layer dicts, the dense layers
+first, and the forward is a Python loop over it. A layer is an MoE layer
+when it holds ``moe`` parameters (else ``mlp``). The decode cache keeps
+the reference's stacked GQA layout, ``cache["layers"][name]`` with a
+leading dimension over all layers, and each layer updates its slice in
+place. MoE layers add their router's auxiliary loss to ``hidden_states``
+and ``loss``.
 
 ``n_pe`` is the size of the emulated systolic ring (0: none). With
 ``cfg.systolic_mode`` set to a link mode the full-sequence FFN runs as the
@@ -34,6 +40,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     adtype,
     apply_mlp,
@@ -75,13 +82,19 @@ def _remat(fn, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen, cfg: ModelConfig):
-    return {
+def init_block(gen, cfg: ModelConfig, moe_layer: bool = False):
+    p = {
         "norm1": init_norm(gen, cfg),
         "norm2": init_norm(gen, cfg),
         "attn": attn.init_gqa(gen, cfg),
-        "mlp": init_mlp(gen, cfg),
     }
+    if moe_layer:
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    else:
+        d_ff = cfg.d_ff_dense if (cfg.family == "moe" and cfg.d_ff_dense) \
+            else cfg.d_ff
+        p["mlp"] = init_mlp(gen, cfg, d_ff=d_ff)
+    return p
 
 
 def _maybe_systolic_mlp(lp_mlp, h, cfg: ModelConfig, n_pe: int):
@@ -98,31 +111,51 @@ def _maybe_systolic_mlp(lp_mlp, h, cfg: ModelConfig, n_pe: int):
     return apply_mlp(lp_mlp, h, cfg)
 
 
+def _ffn(lp, h, cfg: ModelConfig, n_pe: int, *, full_seq: bool):
+    """The block's FFN sublayer: the MoE (with its aux loss) in an MoE
+    layer, else the SwiGLU, over the ring schedules for a full sequence.
+    Returns (y, aux)."""
+    if "moe" in lp:
+        return moe_lib.apply_moe(lp["moe"], h, cfg, n_pe)
+    y = _maybe_systolic_mlp(lp["mlp"], h, cfg, n_pe) if full_seq \
+        else apply_mlp(lp["mlp"], h, cfg)
+    return y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _block(lp, x, cfg: ModelConfig, n_pe: int):
+    """One block over a full sequence -> (x, aux, (k, v))."""
+    h = apply_norm(lp["norm1"], x, cfg)
+    a, kv = attn.gqa_forward(lp["attn"], h, cfg, return_kv=True, n_pe=n_pe)
+    x = x + a
+    h = apply_norm(lp["norm2"], x, cfg)
+    y, aux = _ffn(lp, h, cfg, n_pe, full_seq=True)
+    return x + y, aux, kv
+
+
 def block_forward(lp, x, cfg: ModelConfig, n_pe: int = 0):
-    """One block over a full sequence. Returns (x, aux_loss): the dense
-    family has no auxiliary loss, so aux is a zero."""
-    x, _ = block_prefill(lp, x, cfg, n_pe)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """One block over a full sequence. Returns (x, aux_loss): the MoE's
+    router loss in an MoE layer, else a zero."""
+    x, aux, _ = _block(lp, x, cfg, n_pe)
+    return x, aux
 
 
 def block_prefill(lp, x, cfg: ModelConfig, n_pe: int = 0):
     """One block over a full sequence; also returns the post-rope K/V of
     the attention sublayer, for seeding a decode cache."""
-    h = apply_norm(lp["norm1"], x, cfg)
-    a, (k, v) = attn.gqa_forward(lp["attn"], h, cfg, return_kv=True,
-                                 n_pe=n_pe)
-    x = x + a
-    h = apply_norm(lp["norm2"], x, cfg)
-    return x + _maybe_systolic_mlp(lp["mlp"], h, cfg, n_pe), (k, v)
+    x, _, kv = _block(lp, x, cfg, n_pe)
+    return x, kv
 
 
 def block_decode(lp, x, cache, cfg: ModelConfig, active=None, n_pe: int = 0):
+    """One-token decode of a block; an MoE layer takes the dense dispatch
+    (one token does not divide the ring), as in the reference."""
     h = apply_norm(lp["norm1"], x, cfg)
     a, cache = attn.gqa_decode(lp["attn"], h, cache, cfg, active=active,
                                n_pe=n_pe)
     x = x + a
     h = apply_norm(lp["norm2"], x, cfg)
-    return x + apply_mlp(lp["mlp"], h, cfg), cache
+    y, _ = _ffn(lp, h, cfg, n_pe, full_seq=False)
+    return x + y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -131,25 +164,31 @@ def block_decode(lp, x, cache, cfg: ModelConfig, active=None, n_pe: int = 0):
 
 
 class TransformerLM:
-    """Dense GQA decoder LM over an emulated ring of ``n_pe`` PEs."""
+    """Dense or MoE GQA decoder LM over an emulated ring of ``n_pe`` PEs."""
 
     def __init__(self, cfg: ModelConfig, n_pe: int = 0):
-        if cfg.family != "dense" or cfg.attention_type != "gqa":
+        if cfg.family not in ("dense", "moe") or cfg.attention_type != "gqa":
             raise NotImplementedError(
-                f"{cfg.name}: only the dense GQA family is ported")
+                f"{cfg.name}: only the dense and MoE GQA families are "
+                "ported")
         self.cfg = cfg
         self.n_pe = n_pe
+        self.moe = cfg.family == "moe"
 
     # ------------------------------------------------------------- params
     def init(self, seed: int = 0, device="cuda"):
-        """Random parameters from a seeded ``torch.Generator``."""
+        """Random parameters from a seeded ``torch.Generator``: the
+        ``first_k_dense`` dense layers first, then the rest (MoE layers in
+        the MoE family)."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         cfg = self.cfg
+        dense = cfg.first_k_dense
         return {
             "embed": init_embedding(gen, cfg),
             "final_norm": init_norm(gen, cfg),
             "head": init_lm_head(gen, cfg),
-            "layers": [init_block(gen, cfg) for _ in range(cfg.num_layers)],
+            "layers": [init_block(gen, cfg, moe_layer=self.moe and i >= dense)
+                       for i in range(cfg.num_layers)],
         }
 
     # ------------------------------------------------------------- forward

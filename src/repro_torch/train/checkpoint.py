@@ -37,6 +37,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.convert import layer_groups
+
 _NPZ_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16",
                "int8", "uint64", "uint32", "uint16", "uint8", "bool")
 
@@ -44,13 +46,16 @@ _NPZ_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16",
 def _map_keyed(tree, fn, prefix: str = "", index: Optional[int] = None):
     """``fn(key, layer_index, leaf)`` over a port state; ``key`` is the
     leaf's path in the reference's layout, where the port's ``layers``
-    list is one stacked tree (``layer_index`` is the leaf's position in
-    the list, None outside it)."""
+    list is one stacked tree, or two (an MoE model's leading dense layers
+    are ``dense_layers``), and ``layer_index`` is the leaf's position in
+    its stack (None outside the list)."""
     if isinstance(tree, dict):
         return {k: _map_keyed(v, fn, f"{prefix}{k}/", index)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_keyed(v, fn, prefix, i) for i, v in enumerate(tree)]
+        base = prefix[:-len("layers/")]
+        return [_map_keyed(v, fn, f"{base}{group}/", i)
+                for v, (group, i) in zip(tree, layer_groups(tree))]
     return fn(prefix[:-1], index, tree)
 
 

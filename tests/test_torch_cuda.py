@@ -698,3 +698,96 @@ def test_cuda_corrupt_fault_trips_the_probe_at_its_site(cuda):
     assert be.link_health() == {"tag_errors": 0, "csum_errors": 1}
     be.step(np.ones((4, 1), np.int32), np.ones(4, bool))
     assert be.link_health() == {"tag_errors": 0, "csum_errors": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [0, 2, 3])
+def test_cuda_flash_carry_windowed_gqa6_hop(cuda, hop):
+    """mixtral's ring hop at half its length: 48 heads over 8 KV heads (a
+    GQA group of 6), causal, 1024 queries and keys a PE on a ring of 4,
+    the window twice the block (as 4096 is at 2 x 8192 tokens). At hop 2
+    the window boundary runs through PE 3's tile; at hop 3 no PE sees a
+    key. The state within 2e-4 of its scale, as phase 2 of chip_smoke.py
+    holds it."""
+    g = torch.Generator(device=cuda).manual_seed(hop)
+    n, b, s_l, h, kvh, hd = 4, 2, 1024, 48, 8, 128
+    window = 2 * s_l
+    pe = torch.arange(n, device=cuda).repeat_interleave(b)
+    bf = torch.bfloat16
+    q = torch.randn(n * b, s_l, h, hd, generator=g, device=cuda).to(bf)
+    k = torch.randn(n * b, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    v = torch.randn(n * b, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    m = torch.randn(n * b, h, s_l, generator=g, device=cuda)
+    m[::3] = -1e30
+    l = torch.rand(n * b, h, s_l, generator=g, device=cuda) + 1
+    acc = torch.randn(n * b, h, s_l, hd, generator=g, device=cuda)
+    big = torch.full((n * b,), 2 ** 30, device=cuda)
+    args = (q, k, v, m, l, acc, pe * s_l, (pe - hop) % n * s_l, big, None)
+    opts = dict(causal=True, window=window, normalize=False)
+    got = fk.flash_carry_cuda(*args, **opts)
+    want = fk.flash_carry_plain(*args, **opts)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want[2].abs().max()))
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max()) <= 2e-4 * scale
+    mask = fk.key_mask(pe * s_l, (pe - hop) % n * s_l, big, s_l, s_l,
+                       causal=True, window=window)
+    if hop == 2:
+        assert 0 < int(mask[-1].sum()) < s_l * s_l
+    if hop == 3:
+        assert not bool(mask.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proj", ["gate_up", "down"])
+def test_cuda_tile_matmul_expert_ffn_shape(cuda, proj):
+    """The expert FFN's launch over all 8 experts at mixtral's widths, M
+    reduced to 640 capacity slots: one bf16 rounding of the twin."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    e, m, d, f = 8, 640, 6144, 16384
+    k, n = (d, f) if proj == "gate_up" else (f, d)
+    a = torch.randn(e, m, k, generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn(e, k, n, generator=g, device=cuda) / k ** 0.5) \
+        .to(torch.bfloat16)
+    before = mk.TILE_MATMUL.launches
+    got = mk.matmul_cuda(a, b)
+    assert mk.TILE_MATMUL.launches == before + 1
+    want = mk.matmul_plain(a, b)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2 ** -7 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ring", "torus2d", "cannon_grid"])
+def test_cuda_ring_moe_smoke_modes_bit_identical(cuda, name):
+    """``ring_moe`` at mixtral SMOKE's widths (8 experts here, so 2 a PE
+    on a ring of 4) through the tile-matmul kernel: 3 launches a call in
+    every mode, the ring modes bit for bit, all within 1e-4 of the dense
+    dispatch (fp32)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import ring_moe
+    from repro_torch.core import topology as tp
+    from repro_torch.models import moe
+    cfg = replace(get_smoke_config("mixtral-8x22b"), num_experts=8,
+                  dtype="float32", param_dtype="float32")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.init_moe(g, cfg)
+    x = torch.randn(2, 32, cfg.d_model, generator=g, device=cuda)
+    want, _ = moe.apply_moe(params, x, cfg)
+    w, idx, _ = moe._topk_routing(x @ params["router"], cfg)
+    pos = moe._positions_in_expert(idx, cfg.num_experts)
+    cap = moe.expert_capacity(cfg, 32)
+    topo = tp.resolve(name, "model", 4)
+    ys = {}
+    for mode in ring_moe.MODES:
+        before = mk.TILE_MATMUL.launches
+        ys[mode] = ring_moe.systolic_ring_moe(
+            x, idx, pos, w, params["w_gate"], params["w_up"],
+            params["w_down"], cap, 4, mode, topo=topo)
+        assert mk.TILE_MATMUL.launches == before + 3
+        torch.testing.assert_close(ys[mode], want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ys["sw"], ys["qlr"])
+    assert torch.equal(ys["xqueue"], ys["qlr"])

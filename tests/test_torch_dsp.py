@@ -408,9 +408,12 @@ def test_cannon_matmul_per_pe(ref, preskewed, mode):
 
 def test_cannon_matmul_refuses_what_it_cannot_run():
     left, up = cm.cannon_topologies("pe", 2, 2)
-    a = torch.zeros(4, 2, 2)
-    with pytest.raises(NotImplementedError):
-        cm.cannon_matmul(a, a, left, up, 2, 2, skew="grid")
+    a = torch.arange(16.0).reshape(4, 2, 2)
+    # the one-hop grid skew is ported: it gives the masked skew's values
+    assert torch.equal(cm.cannon_matmul(a, a, left, up, 2, 2, skew="grid"),
+                       cm.cannon_matmul(a, a, left, up, 2, 2))
+    with pytest.raises(ValueError):
+        cm.cannon_matmul(a, a, left, up, 2, 2, skew="bogus")
     with pytest.raises(ValueError):
         cm.cannon_matmul(a, a, left, up, 2, 3)
     with pytest.raises(ValueError):
