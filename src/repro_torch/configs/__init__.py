@@ -1,7 +1,15 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``."""
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_1p3b, mixtral_8x22b, qwen3_0p6b
+from repro_torch.configs import (
+    granite_34b,
+    mamba2_1p3b,
+    mixtral_8x22b,
+    olmo_1b,
+    qwen3_0p6b,
+    qwen3_14b,
+    zamba2_1p2b,
+)
 from repro_torch.configs.base import (
     ModelConfig,
     ServeConfig,
@@ -16,6 +24,10 @@ _MODULES = {
     "qwen3-0.6b": qwen3_0p6b,
     "mamba2-1.3b": mamba2_1p3b,
     "mixtral-8x22b": mixtral_8x22b,
+    "olmo-1b": olmo_1b,
+    "qwen3-14b": qwen3_14b,
+    "granite-34b": granite_34b,
+    "zamba2-1.2b": zamba2_1p2b,
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the port.
 
 The fields the ported slices read (dense serving and training, Mamba2,
-MoE), with the reference's names and defaults (``repro/configs/base.py``),
-so a configuration reads the same in both packages. Fields of families the
-port does not cover yet (MLA, hybrid, enc-dec, VLM) are left out until
-their slice lands.
+MoE, the Zamba2 hybrid), with the reference's names and defaults
+(``repro/configs/base.py``), so a configuration reads the same in both
+packages. Fields of families the port does not cover yet (MLA, enc-dec,
+VLM) are left out until their slice lands.
 """
 from __future__ import annotations
 
@@ -29,14 +29,14 @@ class ModelConfig:
     vocab_size: int = 0
 
     # norms / embeddings / position
-    norm_type: str = "rmsnorm"     # rmsnorm only in this slice
+    norm_type: str = "rmsnorm"     # rmsnorm | layernorm | nonparam_ln
     norm_eps: float = 1e-5
     qk_norm: bool = False
     rope_theta: float = 10000.0
     use_rope: bool = True
     tie_embeddings: bool = False
     use_attn_bias: bool = False
-    mlp_kind: str = "swiglu"       # swiglu only in this slice
+    mlp_kind: str = "swiglu"       # swiglu | gelu
 
     # attention flavor
     attention_type: str = "gqa"    # gqa only in this slice
@@ -61,6 +61,10 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_conv_kernel: int = 4
     ssm_chunk: int = 256
+
+    # hybrid (Zamba2): shared attention block interleaved with mamba stack
+    attn_every: int = 0            # shared attn block every N mamba layers
+    n_shared_attn: int = 0         # number of shared-block invocations
 
     # numerics
     dtype: str = "bfloat16"        # activation/compute dtype

@@ -17,7 +17,9 @@ whatever order each sums in (``cum`` is differenced and exponentiated,
 which would amplify an order's rounding). The causal decay is a select,
 never a product with a mask: above the diagonal ``exp(cum[t] - cum[s])``
 overflows at realistic ``dt``. ``ssd_chunks`` takes the twin for tensors
-on the CPU and launches the kernel (or raises) otherwise.
+on the CPU and launches the kernel (or raises) otherwise, through
+``_SSDChunks``: the kernel's forward, and for its backward the gradient of
+the twin (the reference has no backward kernel: its VJP is jnp autodiff).
 
 The kernel has two bodies behind one launch: bf16 inputs run on the tensor
 cores (``mma.sync``, with M = (C B^T) * decay * dt and x * w each split into
@@ -29,6 +31,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels._build import (
     Kernel,
@@ -80,7 +83,9 @@ def ssd_chunks_plain(x, dt, a, b, c, *, nheads: int, ngroups: int):
     cum = torch.cumsum(da.double(), dim=-1).float()
     diff = cum[..., :, None] - cum[..., None, :]
     mask = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask, torch.exp(diff), 0.0)
+    # exp of -inf above the diagonal: the same zeros as a select after the
+    # exp, and a zero gradient there (0 * exp(overflow) would be NaN)
+    decay = torch.exp(torch.where(mask, diff, float("-inf")))
     cb = torch.matmul(cf, bf.transpose(-1, -2))[rows]         # [BH,NC,L,L]
     m = cb * decay * dtf[..., None, :]
     y = torch.matmul(m, xf)
@@ -122,9 +127,31 @@ def ssd_chunks_cuda(x, dt, a, b, c, *, nheads: int, ngroups: int):
     return y, states, expcum
 
 
+class _SSDChunks(torch.autograd.Function):
+    """Forward: the CUDA kernel. Backward: autograd of the plain twin,
+    under the profiler label ``ssd_chunks_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, nheads, ngroups):
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.opts = dict(nheads=nheads, ngroups=ngroups)
+        return ssd_chunks_cuda(x, dt, a, b, c, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        diff = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad(), record_function("ssd_chunks_backward"):
+            outs = ssd_chunks_plain(*diff, **ctx.opts)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = torch.autograd.grad([o for o, _ in pairs], diff,
+                                      [g for _, g in pairs],
+                                      allow_unused=True)
+        return (*got, None, None)
+
+
 def ssd_chunks(x, dt, a, b, c, *, nheads: int, ngroups: int):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
     if x.device.type == "cpu":
         return ssd_chunks_plain(x, dt, a, b, c, nheads=nheads,
                                 ngroups=ngroups)
-    return ssd_chunks_cuda(x, dt, a, b, c, nheads=nheads, ngroups=ngroups)
+    return _SSDChunks.apply(x, dt, a, b, c, nheads, ngroups)

@@ -10,10 +10,13 @@ async atomic checkpoints + auto-resume (--resume), the preemption hook
 
 Against the reference: ``--mesh`` and ``--multihost`` are gone (one card
 has no device mesh and no hosts to join); ``--n-pe`` sets the emulated
-systolic ring the model's ring paths run on (default 4; they engage when
+systolic ring the model's ring paths run on (default 4, and 0 for
+mamba2-1.3b, which has no ring: asking it for one raises; they engage when
 ``--set systolic_mode=...`` names a link mode and the shapes divide), and
 ``--device`` the device (default ``cuda``; it raises when there is no
 GPU, and runs on the CPU only when asked to with ``--device cpu``).
+``--arch`` takes every ported config: qwen3-0.6b, qwen3-14b, olmo-1b,
+granite-34b, mixtral-8x22b, mamba2-1.3b and zamba2-1.2b.
 
 Observability: --metrics-out FILE.json snapshots the run's registry
 (steps/tokens counters, loss/lr gauges, step-time histogram) as JSON plus
@@ -62,8 +65,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--n-pe", type=int, default=4,
-                    help="PEs of the emulated systolic ring")
+    ap.add_argument("--n-pe", type=int, default=None,
+                    help="PEs of the emulated systolic ring (default 4; "
+                         "0 for the ssm family, which has no ring)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' only on request)")
     ap.add_argument("--set", action="append", default=[], dest="overrides",
@@ -87,7 +91,11 @@ def main(argv=None):
     tcfg = TrainConfig(total_steps=args.steps, checkpoint_dir=ckpt_dir)
     tcfg = apply_overrides(tcfg, args.train_overrides)
 
-    train_step = step_lib.make_train_step(cfg, tcfg, args.n_pe)
+    n_pe = args.n_pe
+    if n_pe is None:
+        # Mamba2 has no ring path (its SSD chain runs inside each layer)
+        n_pe = 0 if cfg.family == "ssm" else 4
+    train_step = step_lib.make_train_step(cfg, tcfg, n_pe)
     state = step_lib.init_state(cfg, tcfg, tcfg.seed, dev)
     print(config_summary(cfg, state["params"]))
 

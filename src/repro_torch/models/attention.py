@@ -185,6 +185,14 @@ def gqa_forward(params, x, cfg: ModelConfig, positions=None,
 
 # ----------------------------- decode cache -------------------------------
 
+# logical axes of each cache leaf (the reference's): a serving backend
+# finds a slot's row by "cache_batch"
+GQA_CACHE_AXES = {
+    "k": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": ("cache_batch", "cache_seq", "kv_heads", "head_dim"),
+    "pos": ("cache_batch",),
+}
+
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
     """Zeroed cache; sliding window uses a ring buffer."""

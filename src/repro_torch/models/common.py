@@ -1,6 +1,7 @@
-"""Common model substrate of the dense slice: dtypes, parameter init from a
-``torch.Generator``, RMS norms, rotary embeddings, embedding, tied LM
-logits, the chunked cross-entropy loss and the SwiGLU MLP. Mirrors
+"""Common model substrate: dtypes, parameter init from a
+``torch.Generator``, the norms (RMS, LayerNorm, non-parametric LayerNorm),
+rotary and sinusoidal positions, embedding, tied LM logits, the chunked
+cross-entropy loss and the SwiGLU and GELU MLPs. Mirrors
 ``repro/models/common.py``; parameters are plain nested dicts of tensors,
 as the reference's value trees are.
 """
@@ -56,17 +57,34 @@ def param(gen: torch.Generator, shape, dtype, init: str = "normal",
 
 
 def init_norm(gen, cfg: ModelConfig, d: int | None = None):
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_type!r} is not ported")
-    return {"scale": param(gen, (d or cfg.d_model,), pdtype(cfg), "ones")}
+    """``rmsnorm``: a scale; ``layernorm``: a scale and a bias;
+    ``nonparam_ln``: no parameters (an empty dict)."""
+    d = d or cfg.d_model
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": param(gen, (d,), pdtype(cfg), "ones")}
+    if cfg.norm_type == "layernorm":
+        return {"scale": param(gen, (d,), pdtype(cfg), "ones"),
+                "bias": param(gen, (d,), pdtype(cfg), "zeros")}
+    if cfg.norm_type == "nonparam_ln":
+        return {}
+    raise ValueError(cfg.norm_type)
 
 
 def apply_norm(params, x, cfg: ModelConfig, eps: float | None = None):
+    """The norm of ``cfg.norm_type`` in fp32; the LayerNorms take the
+    population variance, as ``jnp.var`` does."""
     eps = eps or cfg.norm_eps
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    if cfg.norm_type == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * params["scale"].float()).to(x.dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if cfg.norm_type == "layernorm":
+        y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 def rms_norm_simple(x, scale, eps=1e-6):
@@ -97,6 +115,16 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(num_pos: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal position table [num_pos, d], fp32."""
+    log_ts_incr = math.log(10000.0) / max(d // 2 - 1, 1)
+    inv = torch.exp(-log_ts_incr * torch.arange(d // 2, dtype=torch.float32,
+                                                device=device))
+    scaled = torch.arange(num_pos, dtype=torch.float32,
+                          device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -194,19 +222,32 @@ def softmax_cross_entropy(logits, targets, mask=None, z_loss: float = 0.0):
 
 
 def init_mlp(gen, cfg: ModelConfig, d_ff: int | None = None):
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"mlp {cfg.mlp_kind!r} is not ported")
+    """``swiglu``: gate, up and down; any other kind is the GELU MLP (up
+    and down with zero biases), as in the reference."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "w_gate": param(gen, (d, f), pdtype(cfg)),
+            "w_up": param(gen, (d, f), pdtype(cfg)),
+            "w_down": param(gen, (f, d), pdtype(cfg)),
+        }
     return {
-        "w_gate": param(gen, (d, f), pdtype(cfg)),
         "w_up": param(gen, (d, f), pdtype(cfg)),
+        "b_up": param(gen, (f,), pdtype(cfg), "zeros"),
         "w_down": param(gen, (f, d), pdtype(cfg)),
+        "b_down": param(gen, (d,), pdtype(cfg), "zeros"),
     }
 
 
 def apply_mlp(params, x, cfg: ModelConfig):
+    """SwiGLU, or the GELU MLP with ``jax.nn.gelu``'s default, the tanh
+    approximation."""
     dt = adtype(cfg)
     x = x.to(dt)
-    gate = torch.matmul(x, params["w_gate"].to(dt))
-    up = torch.matmul(x, params["w_up"].to(dt))
-    return torch.matmul(F.silu(gate) * up, params["w_down"].to(dt))
+    if cfg.mlp_kind == "swiglu":
+        gate = torch.matmul(x, params["w_gate"].to(dt))
+        up = torch.matmul(x, params["w_up"].to(dt))
+        return torch.matmul(F.silu(gate) * up, params["w_down"].to(dt))
+    h = torch.matmul(x, params["w_up"].to(dt))
+    h = F.gelu(h + params["b_up"].to(dt), approximate="tanh")
+    return torch.matmul(h, params["w_down"].to(dt)) + params["b_down"].to(dt)

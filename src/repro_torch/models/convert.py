@@ -6,7 +6,11 @@ leading layer dimension (``models/common.split_tree`` of its ``init``),
 and an MoE model's ``first_k_dense`` leading dense layers in a second
 stack, ``dense_layers``; the port keeps one list of per-layer dicts, the
 dense layers first (dense: ``{norm1, norm2, attn, mlp}``; MoE: ``moe`` in
-place of ``mlp``; Mamba2: ``{norm, mixer}``). ``params_from_reference``
+place of ``mlp``; Mamba2: ``{norm, mixer}``). A Zamba2 tree keeps its
+``shared`` block unstacked, and its stacks ``adapters`` [n_super],
+``mamba`` [n_super, inner] and ``tail`` [n_tail] become a list, a list of
+lists and a list. A non-parametric norm is an empty dict in both
+packages, and is carried as one. ``params_from_reference``
 takes that tree with numpy leaves (``np.asarray`` of each value, bfloat16
 included) so both packages compute the same function in the tests.
 ``state_from_reference`` / ``state_to_reference`` carry a whole train
@@ -43,9 +47,19 @@ def _at(a, index):
 
 
 def _first_leaf(tree):
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree
+    """The first array of a tree, depth first, past empty dicts (a
+    non-parametric norm's); None if it holds none."""
+    if not isinstance(tree, dict):
+        return tree
+    for v in tree.values():
+        leaf = _first_leaf(v)
+        if leaf is not None:
+            return leaf
+    return None
+
+
+# Zamba2's stacks and their depth (leading stacked dimensions)
+HYBRID_STACKS = {"adapters": 1, "mamba": 2, "tail": 1}
 
 
 def _from_reference(tree, dt, dev):
@@ -58,18 +72,27 @@ def _from_reference(tree, dt, dev):
         return _tensor(_at(tree, index),
                        torch.float32 if name in FP32_LEAVES else dt, dev)
 
-    def stack(group):
+    def stack(group, depth=1):
         if group not in tree:
             return []
-        n_layers = np.asarray(_first_leaf(tree[group])).shape[0]
-        return [convert(tree[group], i) for i in range(n_layers)]
+        dims = np.asarray(_first_leaf(tree[group])).shape[:depth]
+        if depth == 1:
+            return [convert(tree[group], i) for i in range(dims[0])]
+        return [[convert(tree[group], (i, j)) for j in range(dims[1])]
+                for i in range(dims[0])]
 
-    return {
+    out = {
         "embed": convert(tree["embed"]),
         "final_norm": convert(tree["final_norm"]),
         "head": convert(tree.get("head", {})),
-        "layers": stack("dense_layers") + stack("layers"),
     }
+    if "shared" in tree:
+        out["shared"] = convert(tree["shared"])
+        out.update({g: stack(g, depth) for g, depth in HYBRID_STACKS.items()
+                    if g in tree})
+    else:
+        out["layers"] = stack("dense_layers") + stack("layers")
+    return out
 
 
 def layer_groups(layers) -> list[tuple[str, int]]:
@@ -114,19 +137,35 @@ def _zip_map(trees, fn):
     return fn(*trees)
 
 
+def _as_np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _stack(items):
+    """A list (or list of lists) of same-shaped trees -> one tree of
+    float32 numpy arrays stacked along the list's dimensions."""
+    if isinstance(items[0], list):
+        items = [_stack(x) for x in items]
+        return _zip_map(items, lambda *ls: np.stack(ls))
+    return _zip_map(items, lambda *ls: np.stack([_as_np(t) for t in ls]))
+
+
 def params_to_reference(params):
     """The port's parameters -> the reference's layout, float32 numpy."""
-    as_np = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
     out = {
-        "embed": _map(params["embed"], as_np),
-        "final_norm": _map(params["final_norm"], as_np),
-        "head": _map(params["head"], as_np),
+        "embed": _map(params["embed"], _as_np),
+        "final_norm": _map(params["final_norm"], _as_np),
+        "head": _map(params["head"], _as_np),
     }
+    if "shared" in params:
+        out["shared"] = _map(params["shared"], _as_np)
+        out.update({g: _stack(params[g]) for g in HYBRID_STACKS
+                    if g in params})
+        return out
     groups = [g for g, _ in layer_groups(params["layers"])]
     for group in dict.fromkeys(groups):
-        out[group] = _zip_map(
-            [lp for lp, g in zip(params["layers"], groups) if g == group],
-            lambda *ls: np.stack([as_np(t) for t in ls]))
+        out[group] = _stack([lp for lp, g in zip(params["layers"], groups)
+                             if g == group])
     return out
 
 

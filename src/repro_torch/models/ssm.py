@@ -122,6 +122,12 @@ def mamba2_forward(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+MAMBA2_CACHE_AXES = {
+    "conv": ("cache_batch", None, "conv"),
+    "state": ("cache_batch", "ssm_heads", None, None),
+}
+
+
 def init_mamba2_cache(cfg: ModelConfig, batch: int, device):
     _, nheads, conv_dim = ssm_dims(cfg)
     return {

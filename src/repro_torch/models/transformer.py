@@ -64,14 +64,19 @@ def _save_products(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(fn, cfg: ModelConfig):
+def remat(fn, cfg: ModelConfig, keep_products: bool = True):
+    """``fn`` under ``cfg.remat`` while gradients are recorded (else ``fn``
+    itself). ``keep_products=False`` runs ``selective`` as ``full``, as the
+    reference's Zamba2 does."""
+    if not torch.is_grad_enabled():
+        return fn
     if cfg.remat not in REMATS:
         raise ValueError(f"unknown remat {cfg.remat!r}; expected one of "
                          f"{REMATS}")
     if cfg.remat == "none":
         return fn
     kwargs = {}
-    if cfg.remat == "selective":
+    if cfg.remat == "selective" and keep_products:
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_products)
     return functools.partial(checkpoint, fn, use_reentrant=False, **kwargs)
@@ -196,9 +201,8 @@ class TransformerLM:
         """tokens [B,S] -> (final-norm hidden states [B,S,D], aux loss).
         Blocks run under ``cfg.remat`` while gradients are recorded."""
         cfg = self.cfg
-        body = functools.partial(block_forward, cfg=cfg, n_pe=self.n_pe)
-        if torch.is_grad_enabled():
-            body = _remat(body, cfg)
+        body = remat(functools.partial(block_forward, cfg=cfg,
+                                       n_pe=self.n_pe), cfg)
         x = embed(params["embed"], tokens, cfg)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
@@ -227,6 +231,12 @@ class TransformerLM:
         layers = self.cfg.num_layers
         return {"layers": {name: t.unsqueeze(0).repeat(
             layers, *([1] * t.dim())) for name, t in one.items()}}
+
+    def cache_axes(self):
+        """Logical axes of every cache leaf: GQA's, behind the layer
+        dimension (MoE layers keep GQA caches)."""
+        return {"layers": {k: (None,) + v
+                           for k, v in attn.GQA_CACHE_AXES.items()}}
 
     @staticmethod
     def _layer_cache(cache, i: int):

@@ -1,37 +1,99 @@
-"""Mamba2 LM (mamba2-1.3b). Mirrors ``MambaLM`` of ``repro/models/zamba.py``;
-the Zamba2 hybrid is not ported yet.
+"""Mamba2 LM (mamba2-1.3b) and the Zamba2 hybrid (zamba2-1.2b). Mirrors
+``repro/models/zamba.py``.
 
-``params["layers"]`` is a list of per-layer dicts ``{norm, mixer}`` and
-the forward is a Python loop over it. The decode cache keeps the
-reference's stacked layout, ``{"layers": {"conv": [L,B,K-1,C], "state":
-[L,B,H,P,N]}, "pos"}``, so a serving backend zeroes a slot with
-``leaf[:, slot] = 0``; each layer writes its slice in place.
+Parameters are nested dicts and lists of tensors, and the forward passes
+are Python loops over them:
 
-Prefill runs each layer's SSD scan through the ``ssd_chunks`` kernel (one
-launch per layer). Decode streams one token through the recurrence; the
-model has no block prefill into a cache (``prefill_into_cache``), so a
-serving engine streams prompts through ``decode_step``, as the reference
-does.
+* ``MambaLM``: ``params["layers"]``, a list of per-layer ``{norm, mixer}``;
+  its decode cache keeps the reference's stacked layout, ``{"layers":
+  {"conv": [L,B,K-1,C], "state": [L,B,H,P,N]}, "pos"}``.
+* ``ZambaLM``: a Mamba2 backbone of ``num_layers`` blocks where ONE shared
+  transformer block (``shared``: full MHA and a GELU MLP, its parameters
+  reused by every call) runs before every ``attn_every`` Mamba2 layers,
+  modulated by a small low-rank adapter per call. ``adapters`` is a list
+  of ``n_super = n_shared_attn`` dicts, ``mamba`` a list of ``n_super``
+  lists of ``attn_every`` Mamba2 blocks, and ``tail`` the remaining
+  blocks. Its cache is the reference's, ``{"mamba": {conv, state}
+  [n_super, inner, B, ...], "attn": {k, v, pos} [n_super, B, ...],
+  "tail": {conv, state} [n_tail, B, ...]}``.
+
+Both update their caches in place, and ``cache_axes()`` names every cache
+leaf's axes, so a serving backend finds a slot's row by its
+``cache_batch`` axis.
+
+Prefill runs each Mamba2 layer's SSD scan through the ``ssd_chunks``
+kernel (one launch per layer). ``ZambaLM(cfg, n_pe)`` runs the shared
+block's attention over the emulated ring: the QKV ring and ring attention
+in prefill and training, ring decode attention in decode. The GELU MLP
+stays off the ring, as in the reference. Neither model has a block prefill
+into a cache (``prefill_into_cache``), so a serving engine streams prompts
+through ``decode_step``, as the reference does.
+
+While gradients are recorded, ``cfg.remat`` other than ``none``
+recomputes each Mamba2 layer, and each Zamba super-block (the shared
+block and its Mamba2 layers), in the backward, as the reference's
+``jax.checkpoint`` wraps them (``transformer.remat``, which refuses an
+unknown value); ``selective`` is ``full`` here, as there.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (
+    adtype,
+    apply_mlp,
     apply_norm,
     embed,
     init_embedding,
     init_lm_head,
+    init_mlp,
     init_norm,
     lm_logits,
+    lm_loss_chunked,
+    param,
+    pdtype,
     resolve_device,
 )
+from repro_torch.models.transformer import remat
+
+
+def _stacked(one: dict, *lead: int) -> dict:
+    """Each leaf of ``one`` repeated behind leading dimensions ``lead``."""
+    return {name: t.expand(*lead, *t.shape).clone()
+            for name, t in one.items()}
+
+
+def _lm_loss(cfg: ModelConfig, params, x, batch):
+    ce = lm_loss_chunked(params["head"], params["embed"], x,
+                         batch["targets"], cfg, mask=batch.get("mask"))
+    return ce, {"ce": ce}
+
+
+# ---------------------------------------------------------------------------
+# Pure Mamba2 LM
+# ---------------------------------------------------------------------------
 
 
 def init_mamba_block(gen, cfg: ModelConfig):
     return {"norm": init_norm(gen, cfg), "mixer": ssm.init_mamba2(gen, cfg)}
+
+
+def mamba_block(lp, x, cfg: ModelConfig):
+    """One pre-norm Mamba2 block over a full sequence."""
+    return x + ssm.mamba2_forward(lp["mixer"], apply_norm(lp["norm"], x, cfg),
+                                  cfg)
+
+
+def _mamba_step(lp, x, cache, cfg: ModelConfig, active):
+    """One-token Mamba2 block -> (x, new conv/state)."""
+    y, new = ssm.mamba2_decode(lp["mixer"], apply_norm(lp["norm"], x, cfg),
+                               cache, cfg, active=active)
+    return x + y, new
 
 
 class MambaLM:
@@ -56,11 +118,18 @@ class MambaLM:
     def hidden_states(self, params, tokens):
         """tokens [B,S] -> final-norm hidden states [B,S,D]."""
         cfg = self.cfg
+        body = remat(functools.partial(mamba_block, cfg=cfg), cfg,
+                     keep_products=False)
         x = embed(params["embed"], tokens, cfg)
         for lp in params["layers"]:
-            h = apply_norm(lp["norm"], x, cfg)
-            x = x + ssm.mamba2_forward(lp["mixer"], h, cfg)
+            x = body(lp, x)
         return apply_norm(params["final_norm"], x, cfg)
+
+    def loss(self, params, batch):
+        """Training loss of ``batch`` (``tokens``, ``targets``, optionally
+        ``mask``). Returns (loss, {"ce"})."""
+        x = self.hidden_states(params, batch["tokens"])
+        return _lm_loss(self.cfg, params, x, batch)
 
     def prefill(self, params, tokens):
         """Forward pass returning last-position logits [B, V]."""
@@ -72,10 +141,13 @@ class MambaLM:
         state does not grow with the sequence)."""
         dev = resolve_device(device)
         one = ssm.init_mamba2_cache(self.cfg, batch, dev)
-        layers = self.cfg.num_layers
-        return {"layers": {name: t.unsqueeze(0).repeat(
-                    layers, *([1] * t.dim())) for name, t in one.items()},
+        return {"layers": _stacked(one, self.cfg.num_layers),
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def cache_axes(self):
+        return {"layers": {k: (None,) + v
+                           for k, v in ssm.MAMBA2_CACHE_AXES.items()},
+                "pos": ()}
 
     def decode_step(self, params, cache, tokens, active=None):
         """tokens: [B,1] -> (logits [B,V], cache). Rows with ``active``
@@ -84,14 +156,166 @@ class MambaLM:
         layers = cache["layers"]
         x = embed(params["embed"], tokens, cfg)
         for i, lp in enumerate(params["layers"]):
-            h = apply_norm(lp["norm"], x, cfg)
-            y, new = ssm.mamba2_decode(
-                lp["mixer"], h, {k: v[i] for k, v in layers.items()}, cfg,
-                active=active)
+            x, new = _mamba_step(lp, x, {k: v[i] for k, v in layers.items()},
+                                 cfg, active)
             for k, v in new.items():
                 layers[k][i] = v
-            x = x + y
         x = apply_norm(params["final_norm"], x, cfg)
         logits = lm_logits(params["head"], params["embed"], x, cfg)
         cache["pos"] += 1
+        return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid
+# ---------------------------------------------------------------------------
+
+
+def init_shared_block(gen, cfg: ModelConfig):
+    return {
+        "norm1": init_norm(gen, cfg),
+        "attn": attn.init_gqa(gen, cfg),
+        "norm2": init_norm(gen, cfg),
+        "mlp": init_mlp(gen, cfg),
+    }
+
+
+def init_adapter(gen, cfg: ModelConfig, rank: int = 64):
+    return {"a": param(gen, (cfg.d_model, rank), pdtype(cfg)),
+            "b": param(gen, (rank, cfg.d_model), pdtype(cfg), "zeros")}
+
+
+def _modulate(shared, adapter, x, cfg: ModelConfig):
+    """The shared block's input: norm1, then the call's low-rank
+    modulation ``h + (h a) b``."""
+    dt = adtype(cfg)
+    h = apply_norm(shared["norm1"], x, cfg)
+    mod = torch.matmul(h.to(dt), adapter["a"].to(dt))
+    return h + torch.matmul(mod, adapter["b"].to(dt))
+
+
+class ZambaLM:
+    """Zamba2 over an emulated ring of ``n_pe`` PEs (0: none)."""
+
+    def __init__(self, cfg: ModelConfig, n_pe: int = 0):
+        if cfg.family != "hybrid":
+            raise NotImplementedError(f"{cfg.name}: ZambaLM takes the "
+                                      f"hybrid family, got {cfg.family!r}")
+        self.cfg = cfg
+        self.n_pe = n_pe
+        self.n_super = cfg.n_shared_attn
+        self.inner = cfg.attn_every
+        self.n_tail = cfg.num_layers - self.n_super * self.inner
+        if self.n_tail < 0:
+            raise ValueError("num_layers < n_shared_attn * attn_every")
+
+    def init(self, seed: int = 0, device="cuda"):
+        """Random parameters from a seeded ``torch.Generator``."""
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        cfg = self.cfg
+        p = {
+            "embed": init_embedding(gen, cfg),
+            "final_norm": init_norm(gen, cfg),
+            "head": init_lm_head(gen, cfg),
+            "shared": init_shared_block(gen, cfg),
+            "adapters": [init_adapter(gen, cfg)
+                         for _ in range(self.n_super)],
+            "mamba": [[init_mamba_block(gen, cfg) for _ in range(self.inner)]
+                      for _ in range(self.n_super)],
+        }
+        if self.n_tail:
+            p["tail"] = [init_mamba_block(gen, cfg)
+                         for _ in range(self.n_tail)]
+        return p
+
+    def _shared_attn(self, shared, adapter, x):
+        cfg = self.cfg
+        h = _modulate(shared, adapter, x, cfg)
+        x = x + attn.gqa_forward(shared["attn"], h, cfg, n_pe=self.n_pe)
+        h = apply_norm(shared["norm2"], x, cfg)
+        return x + apply_mlp(shared["mlp"], h, cfg)
+
+    def hidden_states(self, params, tokens):
+        """tokens [B,S] -> final-norm hidden states [B,S,D]."""
+        cfg = self.cfg
+        mamba_body = remat(functools.partial(mamba_block, cfg=cfg), cfg,
+                           keep_products=False)
+
+        def super_body(shared, adapter, stack, x):
+            x = self._shared_attn(shared, adapter, x)
+            for lp in stack:
+                x = mamba_body(lp, x)
+            return x
+
+        super_body = remat(super_body, cfg, keep_products=False)
+        x = embed(params["embed"], tokens, cfg)
+        for adapter, stack in zip(params["adapters"], params["mamba"]):
+            x = super_body(params["shared"], adapter, stack, x)
+        for lp in params.get("tail", []):
+            x = mamba_body(lp, x)
+        return apply_norm(params["final_norm"], x, cfg)
+
+    def loss(self, params, batch):
+        """Training loss of ``batch`` (``tokens``, ``targets``, optionally
+        ``mask``). Returns (loss, {"ce"})."""
+        x = self.hidden_states(params, batch["tokens"])
+        return _lm_loss(self.cfg, params, x, batch)
+
+    def prefill(self, params, tokens):
+        """Forward pass returning last-position logits [B, V]."""
+        x = self.hidden_states(params, tokens)
+        return lm_logits(params["head"], params["embed"], x[:, -1], self.cfg)
+
+    # --------------------------------------------------------------- decode
+    def init_cache(self, batch: int, seq_len: int, device="cuda"):
+        dev = resolve_device(device)
+        m_one = ssm.init_mamba2_cache(self.cfg, batch, dev)
+        cache = {
+            "mamba": _stacked(m_one, self.n_super, self.inner),
+            "attn": _stacked(attn.init_gqa_cache(self.cfg, batch, seq_len,
+                                                 dev), self.n_super),
+        }
+        if self.n_tail:
+            cache["tail"] = _stacked(m_one, self.n_tail)
+        return cache
+
+    def cache_axes(self):
+        out = {"mamba": {k: (None, None) + v
+                         for k, v in ssm.MAMBA2_CACHE_AXES.items()},
+               "attn": {k: (None,) + v
+                        for k, v in attn.GQA_CACHE_AXES.items()}}
+        if self.n_tail:
+            out["tail"] = {k: (None,) + v
+                           for k, v in ssm.MAMBA2_CACHE_AXES.items()}
+        return out
+
+    def decode_step(self, params, cache, tokens, active=None):
+        """tokens: [B,1] -> (logits [B,V], cache). Rows with ``active``
+        False keep their state and positions. The cache is updated in
+        place."""
+        cfg = self.cfg
+        shared = params["shared"]
+        x = embed(params["embed"], tokens, cfg)
+        m_cache, a_cache = cache["mamba"], cache["attn"]
+        for i, (adapter, stack) in enumerate(zip(params["adapters"],
+                                                 params["mamba"])):
+            h = _modulate(shared, adapter, x, cfg)
+            a, _ = attn.gqa_decode(shared["attn"], h,
+                                   {k: v[i] for k, v in a_cache.items()},
+                                   cfg, active=active, n_pe=self.n_pe)
+            x = x + a
+            h = apply_norm(shared["norm2"], x, cfg)
+            x = x + apply_mlp(shared["mlp"], h, cfg)
+            for j, lp in enumerate(stack):
+                x, new = _mamba_step(lp, x, {k: v[i, j] for k, v in
+                                             m_cache.items()}, cfg, active)
+                for k, v in new.items():
+                    m_cache[k][i, j] = v
+        for j, lp in enumerate(params.get("tail", [])):
+            x, new = _mamba_step(lp, x, {k: v[j] for k, v in
+                                         cache["tail"].items()}, cfg, active)
+            for k, v in new.items():
+                cache["tail"][k][j] = v
+        x = apply_norm(params["final_norm"], x, cfg)
+        logits = lm_logits(params["head"], params["embed"], x, cfg)
         return logits[:, 0], cache

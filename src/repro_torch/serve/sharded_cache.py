@@ -1,8 +1,8 @@
 """Decode backends: the device-side halves of the serving engine.
 
 * :class:`DecodeBackend` — one ``model.decode_step`` per tick over the
-  slot batch, no ring: the dense LM, or Mamba2 (whose prompts stream
-  through the decode step, having no block prefill).
+  slot batch, no ring: the dense LM, or Mamba2 and Zamba2 (whose prompts
+  stream through the decode step, having no block prefill).
 * :class:`RingShardedBackend` — the hybrid systolic layout on one card:
   the model runs over an emulated ring of ``n_pe`` PEs with
   ``cfg.systolic_mode`` set to a link mode, so decode streams each row's
@@ -13,11 +13,13 @@
 Both expose the same surface — ``step``, ``free_slot``,
 ``prefill_len``/``prefill``, ``snapshot_cache``/``adopt_cache``,
 ``link_health``, ``link_stats``, ``set_telemetry`` — so the scheduler and
-the health monitor cannot tell them apart. The cache is one tensor per
-field, updated in place by the model; so where the reference's monitor
+the health monitor cannot tell them apart. The cache is a tree of
+tensors, updated in place by the model; so where the reference's monitor
 keeps a reference to its immutable cache as a free snapshot, the port's
 ``snapshot_cache`` clones every leaf, and ``adopt_cache`` copies a
-snapshot back into the backend's own cache.
+snapshot back into the backend's own cache. ``free_slot`` finds a slot's
+row in every leaf by the ``cache_batch`` axis of the model's
+``cache_axes()``, as the reference does, never by guessing a dimension.
 
 Robustness and telemetry (``serve/health.py`` rides on them):
 
@@ -48,6 +50,7 @@ from repro_torch.models import build_model
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import linkstats
 from repro_torch.obs.trace import NullTracer
+from repro_torch.train.optimizer import tree_map
 
 
 def _to_device(tree, device):
@@ -88,26 +91,29 @@ class DecodeBackend:
             torch.as_tensor(active, device=self.device))
         return logits
 
+    @torch.no_grad()
     def free_slot(self, slot: int) -> None:
         """Zero a freed slot's cache rows so the next occupant decodes
-        bit-identically to a fresh engine."""
-        for leaf in self.cache["layers"].values():
-            leaf[:, slot] = 0
+        bit-identically to a fresh engine: in every leaf, the row at its
+        ``cache_batch`` axis (leaves without one are shared by all slots
+        and kept)."""
+        def zero(leaf, axes):
+            if axes and "cache_batch" in axes:
+                leaf[(slice(None),) * axes.index("cache_batch") + (slot,)] = 0
+        tree_map(zero, self.cache, self.model.cache_axes())
 
     @torch.no_grad()
     def snapshot_cache(self):
         """A copy of the cache (every leaf cloned): the model writes the
         cache in place, so a rollback needs its own copy."""
-        return {"layers": {k: v.clone()
-                           for k, v in self.cache["layers"].items()}}
+        return tree_map(torch.clone, self.cache)
 
     @torch.no_grad()
     def adopt_cache(self, cache) -> None:
         """Take over a cache snapshot (a rollback, or another backend's on
         the mode ladder): copy it into this backend's own cache, leaving
         the snapshot itself untouched."""
-        for k, v in self.cache["layers"].items():
-            v.copy_(cache["layers"][k])
+        tree_map(lambda mine, theirs: mine.copy_(theirs), self.cache, cache)
 
     def link_health(self) -> dict:
         """Per-class link error counts of the last step's probe (empty for
@@ -125,7 +131,8 @@ class DecodeBackend:
     @property
     def supports_prefill(self) -> bool:
         """Block prefill needs the model's ``prefill_into_cache`` (Mamba2
-        has none: its prompts stream through the decode step)."""
+        and Zamba2 have none: their prompts stream through the decode
+        step)."""
         return (self.scfg.prefill_chunk > 0
                 and hasattr(self.model, "prefill_into_cache")
                 and self.cfg.attention_type == "gqa"

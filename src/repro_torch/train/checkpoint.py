@@ -9,7 +9,9 @@ Mirrors ``repro/train/checkpoint.py``:
     next save or at exit;
   * ``step_XXXXXXXX/arrays.npz`` holds every leaf under its key in the
     reference's layout (``params/layers/attn/wq``, layers stacked along a
-    leading dimension; ``opt/m/...``, ``opt/step``), and ``meta.json`` the
+    leading dimension, a Zamba2 model's ``mamba`` blocks along two;
+    ``opt/m/...``, ``opt/step``; a non-parametric norm has no leaf), and
+    ``meta.json`` the
     step, the keys, each leaf's dtype and the caller's extras (the data
     iterator's state). npz has no bfloat16 (nor fp8): such a leaf is
     stored as its bytes, a uint8 array with a trailing dimension of its
@@ -43,19 +45,24 @@ _NPZ_DTYPES = ("float64", "float32", "float16", "int64", "int32", "int16",
                "int8", "uint64", "uint32", "uint16", "uint8", "bool")
 
 
-def _map_keyed(tree, fn, prefix: str = "", index: Optional[int] = None):
-    """``fn(key, layer_index, leaf)`` over a port state; ``key`` is the
-    leaf's path in the reference's layout, where the port's ``layers``
-    list is one stacked tree, or two (an MoE model's leading dense layers
-    are ``dense_layers``), and ``layer_index`` is the leaf's position in
-    its stack (None outside the list)."""
+def _map_keyed(tree, fn, prefix: str = "", index: Optional[tuple] = None):
+    """``fn(key, index, leaf)`` over a port state; ``key`` is the leaf's
+    path in the reference's layout, where each list of the port's tree is
+    one stacked tree (a list of lists stacks along two dimensions), except
+    that the ``layers`` list is two when an MoE model's leading dense
+    layers are ``dense_layers``; ``index`` is the leaf's position in its
+    stack, a tuple (None outside any list)."""
     if isinstance(tree, dict):
         return {k: _map_keyed(v, fn, f"{prefix}{k}/", index)
                 for k, v in tree.items()}
-    if isinstance(tree, list):
+    if isinstance(tree, list) and index is None \
+            and prefix.endswith("layers/"):
         base = prefix[:-len("layers/")]
-        return [_map_keyed(v, fn, f"{base}{group}/", i)
+        return [_map_keyed(v, fn, f"{base}{group}/", (i,))
                 for v, (group, i) in zip(tree, layer_groups(tree))]
+    if isinstance(tree, list):
+        return [_map_keyed(v, fn, prefix, (index or ()) + (i,))
+                for i, v in enumerate(tree)]
     return fn(prefix[:-1], index, tree)
 
 
@@ -71,10 +78,16 @@ def _host_arrays(state) -> dict:
         parts.setdefault(key, []).append(
             (index, leaf.detach().to("cpu", copy=True)))
 
+    def stacked(entries):
+        if entries[0][0] is None:
+            return entries[0][1]
+        dims = [max(ix[d] for ix, _ in entries) + 1
+                for d in range(len(entries[0][0]))]
+        leaves = [t for _, t in sorted(entries, key=lambda p: p[0])]
+        return torch.stack(leaves).reshape(*dims, *leaves[0].shape)
+
     _map_keyed(state, put)
-    return {k: (v[0][1] if v[0][0] is None
-                else torch.stack([t for _, t in sorted(v, key=lambda p: p[0])]))
-            for k, v in parts.items()}
+    return {k: stacked(v) for k, v in parts.items()}
 
 
 def _encode(t: torch.Tensor) -> np.ndarray:

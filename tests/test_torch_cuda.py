@@ -411,6 +411,8 @@ SSD_CASES = {
     "ragged": (2, 3, 1, 2, 100, 24, 40, None, 0.0),
     "small": (2, 4, 1, 3, 16, 16, 16, None, 0.0),
     "zamba2": (1, 4, 1, 2, 256, 64, 64, None, 0.0),     # zamba2-1.2b's P, N
+    # zamba2-1.2b's prefill of 4 x 2048 tokens: x [256, 8, 256, 64], N = 64
+    "zamba2_prefill": (4, 64, 1, 8, 256, 64, 64, -1.0, 0.0),
     # cum reaches about -1300: exp(cum) underflows, and above the diagonal
     # exp(cum[t] - cum[s]) overflows to inf
     "overflow": (1, 2, 1, 2, 256, 64, 128, -4.0, 1.0),
@@ -498,6 +500,110 @@ def test_cuda_mamba_prefill_launches_ssd_once_per_layer(cuda):
     from repro_torch.serve.sharded_cache import _to_device
     want = model.prefill(_to_device(params, "cpu"), tokens.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["zamba2", "overflow"])
+def test_cuda_ssd_chunks_grads_vs_twin(cuda, dtype, case):
+    """``_SSDChunks``: the kernel forward (one launch), and for the
+    backward the twin's gradient at the saved inputs: the same as the
+    twin's autograd, and finite where the decay above the diagonal
+    overflows."""
+    bsz, h, g, nc, l, p, n, a_val, shift = SSD_CASES[case]
+    args = ssd_inputs(cuda, dtype, bsz, h, g, nc, l, p, n, a_val, shift,
+                      seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    diff = [t.detach().requires_grad_(True) for t in args]
+    outs = sk.ssd_chunks(*diff, nheads=h, ngroups=g)
+    ups = [torch.randn(o.shape, generator=gen, device=cuda) for o in outs]
+    before = sk.SSD_CHUNKS.launches
+    outs = sk.ssd_chunks(*diff, nheads=h, ngroups=g)
+    assert sk.SSD_CHUNKS.launches == before + 1
+    got = torch.autograd.grad(outs, diff, ups)
+    want = torch.autograd.grad(
+        sk.ssd_chunks_plain(*diff, nheads=h, ngroups=g), diff, ups)
+    torch.cuda.synchronize()
+    for x, y, leaf in zip(got, want, diff):
+        assert x.shape == leaf.shape and x.dtype == leaf.dtype
+        assert bool(torch.isfinite(x).all())
+        tol = 1e-5 * max(1.0, float(y.float().abs().max()))
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba2_forward_grads_vs_cpu(cuda, dtype):
+    """Gradients of a Mamba2 layer (SMOKE zamba2 widths, chunk 8, two
+    chunks) on the card (the kernel, ``_SSDChunks``' backward) against the
+    same call on the CPU (the twin throughout), at
+    ``tests/test_torch_ssm.py``'s bounds: fp32 1e-4, bf16 2e-2."""
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ssm
+    from repro_torch.serve.sharded_cache import _to_device
+    cfg = replace(get_smoke_config("zamba2-1.2b"), dtype=dtype,
+                  param_dtype=dtype)
+    params = ssm.init_mamba2(torch.Generator().manual_seed(0), cfg)
+    params["A_log"] = torch.randn(params["A_log"].shape,
+                                  generator=torch.Generator().manual_seed(1))
+    x = torch.randn(2, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2)).to(
+        params["w_in"].dtype)
+    up = torch.randn(2, 16, cfg.d_model,
+                     generator=torch.Generator().manual_seed(3))
+
+    def grads(p, xx):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xx = xx.detach().requires_grad_(True)
+        y = ssm.mamba2_forward(leaves, xx, cfg)
+        got = torch.autograd.grad(y, [xx, *leaves.values()],
+                                  up.to(y.device, y.dtype))
+        return [g.cpu().float() for g in got]
+
+    before = sk.SSD_CHUNKS.launches
+    got = grads(_to_device(params, cuda), x.to(cuda))
+    assert sk.SSD_CHUNKS.launches == before + 1
+    want = grads(params, x)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, a, b in zip(["x", *params], got, want):
+        assert bool(torch.isfinite(a).all()), name
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=tol * scale,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_zamba_ring_loss_and_grads_vs_cpu(cuda):
+    """SMOKE zamba2 in fp32 on a ring of 2 in qlr, remat "full", on the
+    card (all three kernels, forward and recompute) against the same loss
+    and gradients on the CPU: loss 1e-4, gradients 1e-3."""
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.sharded_cache import _to_device
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    cfg = replace(get_smoke_config("zamba2-1.2b"), dtype="float32",
+                  param_dtype="float32", systolic_mode="qlr")
+    model = build_model(cfg, n_pe=2)
+    params = model.init(0, device="cpu")
+    raw = torch.randint(0, cfg.vocab_size, (2, 17),
+                        generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": raw[:, :-1], "targets": raw[:, 1:]}
+    counts = lambda: (sk.SSD_CHUNKS.launches,     # noqa: E731
+                      mk.TILE_MATMUL.launches, fk.FLASH_CARRY.launches)
+    before = counts()
+    loss, _, grads = step_lib.value_and_grad(
+        model, _to_device(params, cuda),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(counts(), before)]
+    assert all(launched), launched
+    want_loss, _, want = step_lib.value_and_grad(model, params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4
+    for a, b in zip(opt.tree_leaves(grads), opt.tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
