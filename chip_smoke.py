@@ -4,8 +4,10 @@ on the card, serve qwen3-0.6b at full width on the emulated ring, run the
 paper's DSP suite on an emulated 256-PE cluster, prefill and serve
 mamba2-1.3b at full width and depth, train qwen3-0.6b at full width and
 depth on the ring, run mixtral-8x22b's MoE family and the 2-D grid
-schedules at full width, and prefill, train and serve zamba2-1.2b, serve
-qwen3-14b and prefill olmo-1b and granite-34b at full width.
+schedules at full width, prefill, train and serve zamba2-1.2b, serve
+qwen3-14b and prefill olmo-1b and granite-34b at full width, and run
+internvl2-1b, deepseek-v2-lite-16b and whisper-tiny at full width and
+depth.
 
     python3 chip_smoke.py
 
@@ -117,13 +119,41 @@ non-zero before the result lines are printed:
    num_layers=4`` (4 of 16 layers) as a user runs it: finite losses,
    launches per step as reckoned; (g) granite-34b at full width, 4 of 88
    layers, fp32, 2 x 2048: prefill on the ring (the QKV ring refused,
-   GQA-48 flash hops) against dense.
+   GQA-48 flash hops) against dense;
+13. the VLM, MLA and Whisper families, bf16, qlr unless stated: (a)
+   internvl2-1b at full width and depth (24 layers) on the ring of 2,
+   where the QKV ring (14 heads, 2 KV heads), ring attention (GQA-7,
+   head_dim 64) and the FFN rings all engage: ``prefill`` of 4 x 2048
+   tokens with seeded patch embeds [4, 256, 1024], 3 timed calls,
+   launches as reckoned, profiled; the ring in qlr, xqueue and sw against
+   the dense path with patches (4 layers, fp32, 2 x 1024: 2e-3, modes bit
+   for bit); two training steps with patches (2 x 2048, remat "full"):
+   finite, the projector's gradient nonzero; serving as in phase 3 on the
+   ring of 2; (b) deepseek-v2-lite-16b at full width and depth (27
+   layers, about 31 GB): ``prefill`` of 2 x 2048 tokens (``_mla_blocked``)
+   on the ring of 4, 3 timed calls, only layer 0's FFN ring launching
+   (12 tile matmuls), profiled; ``ServeEngine`` over the dense and ring
+   backends in lockstep, 8 prompts streamed through the absorbed decode,
+   16 new tokens: every token equal, no launch; 3 layers in fp32: the ring
+   against dense on 1 x 2048 (modes bit for bit) and the absorbed decode
+   against the expanded prefill (2e-3) over 2 x 16 tokens (past 16 a
+   prefill's MoE drops assignments that decode keeps, as in the
+   reference) and, layer 0's MLA alone, over 2 x 256; two training steps
+   at 2 layers; (c) whisper-tiny at full width and depth (4 + 4
+   layers) on the ring of 2 (its 6 heads do not split 4 ways): ``encode``
+   of 16 x 1500 frames (QKV ring hops) and ``prefill`` of 16 x 448 tokens
+   (QKV ring and flash hops in the decoder), 3 timed calls each, profiled;
+   in fp32 the ring against dense (2e-3, modes bit for bit), then
+   ``fill_cross_cache``, 8 prompt tokens and 64 greedy decode steps of 4
+   rows on the ring against the prefill of the whole sequence (2e-3); two
+   training steps. Each training run times its second step.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -153,6 +183,10 @@ ZAMBA_BATCH, ZAMBA_SEQ = 4, 2048   # phase 12: zamba2 prefill and training
 GRANITE_BATCH = 2                  # phase 12 (g): granite 2 x 2048 prefill
 GRANITE_LAYERS = 4                 # of 88, at full width
 Q14_D, Q14_FF = 5120, 17408        # qwen3-14b's widths (phase 12 (e))
+VLM_NPE = 2                        # phase 13 (a), (c): the ring of 2
+VLM_BATCH, VLM_SEQ = 4, 2048       # (a): internvl2 prefill, 4 x 2048
+MLA_BATCH, MLA_SEQ = 2, 2048       # (b): deepseek prefill, 2 x 2048
+WHISPER_BATCH, WHISPER_SEQ = 16, 448   # (c): 16 x 1500 frames, 448 tokens
 # profiler ranges around the twin backwards of the autograd.Functions
 BACKWARD_LABELS = ("flash_carry_backward", "tile_matmul_backward",
                    "ssd_chunks_backward")
@@ -443,6 +477,36 @@ def flash_cases(torch, fk, dev):
                   (pe_z - 1) % N_PE * s_l,
                   torch.tensor(2 ** 30, device=dev).expand(rows), None),
             opts=dict(causal=True, window=0, normalize=False))
+    # phase 13: hop 1 of internvl2-1b's prefill (4 x 2048 on the ring of 2:
+    # 8 rows of PE x batch, 1024 queries and keys, 14 heads over 2 KV
+    # heads, a GQA group of 7) and of whisper-tiny's decoder (16 x 448 on
+    # the ring of 2: 32 rows, 224 queries and keys, 6 heads, MHA), both at
+    # head_dim 64 (the CUDA-core body); then, for SDPA's yardstick, every
+    # head_dim-64 and GQA-48 hop's normalized form folded from zero state
+    # on aligned positions (the causal diagonal block)
+    hops = {"zamba_prefill": (N_PE, ZAMBA_BATCH, ZAMBA_SEQ, 32, 32, 64),
+            "granite_gqa48": (N_PE, GRANITE_BATCH, ZAMBA_SEQ, 48, 1, 128),
+            "vlm_prefill": (VLM_NPE, VLM_BATCH, VLM_SEQ, 14, 2, 64),
+            "whisper_prefill": (VLM_NPE, WHISPER_BATCH, WHISPER_SEQ, 6, 6,
+                                64)}
+    for name, (n, bsz, seq, qh, kh, d) in hops.items():
+        rows, s_l = n * bsz, seq // n
+        pe_h = torch.arange(n, device=dev).repeat_interleave(bsz)
+        qh_ = torch.randn(rows, s_l, qh, d, generator=g, device=dev).to(bf)
+        kh_ = torch.randn(rows, s_l, kh, d, generator=g, device=dev).to(bf)
+        vh_ = torch.randn(rows, s_l, kh, d, generator=g, device=dev).to(bf)
+        big_h = torch.tensor(2 ** 30, device=dev).expand(rows)
+        if name.startswith(("vlm", "whisper")):
+            mh_, lh_, acch_ = state(rows, s_l, fresh=False, h=qh, d=d)
+            mh_[::3] = -1e30
+            cases[f"{name}_hop"] = dict(
+                args=(qh_, kh_, vh_, mh_, lh_, acch_, pe_h * s_l,
+                      (pe_h - 1) % n * s_l, big_h, None),
+                opts=dict(causal=True, window=0, normalize=False))
+        cases[f"{name}_normalized"] = dict(
+            args=(qh_, kh_, vh_, *state(rows, s_l, fresh=True, h=qh, d=d),
+                  0 * pe_h, 0 * pe_h, big_h, None),
+            opts=dict(causal=True, window=0, normalize=True, out_dtype=bf))
     return cases
 
 
@@ -617,6 +681,37 @@ def check_matmul(torch, mk, dev):
                                None, bf),
         "moe_expert_down": (rnd(8, 5120, 16384), rnd(8, 16384, 6144), None,
                             bf),
+        # phase 13: every hop shape of internvl2-1b's prefill on the ring
+        # of 2 (M = 4 x 2048 / 2): the QKV ring's q sink (7 of 14 heads of
+        # 64), its k/v sinks (1 of 2 KV heads: N = 64), the FFN AG hop (F/2
+        # = 2432) and the RS hop with its bf16 travelling accumulator;
+        # deepseek-v2-lite's leading dense FFN on the ring of 4 (M = 2 x
+        # 2048 / 4, F/4 = 2736: the AG hop and the RS hop); whisper-tiny's
+        # QKV ring sink on the ring of 2 (3 of 6 heads of 64; q, k and v
+        # alike) in the encoder (M = 16 x 1500 / 2) and the decoder (M = 16
+        # x 448 / 2)
+        "vlm_qkv_q_hop": (rnd(VLM_NPE, VLM_BATCH * VLM_SEQ // VLM_NPE, 896),
+                          rnd(VLM_NPE, 896, 448), None, bf),
+        "vlm_qkv_kv_hop": (rnd(VLM_NPE, VLM_BATCH * VLM_SEQ // VLM_NPE,
+                                896), rnd(VLM_NPE, 896, 64), None, bf),
+        "vlm_ffn_ag_hop": (rnd(VLM_NPE, VLM_BATCH * VLM_SEQ // VLM_NPE, 896),
+                           rnd(VLM_NPE, 896, 4864 // VLM_NPE), None, bf),
+        "vlm_ffn_rs_carry_hop": (
+            rnd(VLM_NPE, VLM_BATCH * VLM_SEQ // VLM_NPE, 4864 // VLM_NPE),
+            rnd(VLM_NPE, 4864 // VLM_NPE, 896),
+            rnd(VLM_NPE, VLM_BATCH * VLM_SEQ // VLM_NPE, 896), bf),
+        "mla_dense_ffn_ag_hop": (rnd(N_PE, MLA_BATCH * MLA_SEQ // N_PE,
+                                     2048),
+                                 rnd(N_PE, 2048, 10944 // N_PE), None, bf),
+        "mla_dense_ffn_rs_carry_hop": (
+            rnd(N_PE, MLA_BATCH * MLA_SEQ // N_PE, 10944 // N_PE),
+            rnd(N_PE, 10944 // N_PE, 2048),
+            rnd(N_PE, MLA_BATCH * MLA_SEQ // N_PE, 2048), bf),
+        "whisper_qkv_q_hop": (rnd(VLM_NPE, WHISPER_BATCH * 1500 // VLM_NPE,
+                                  384), rnd(VLM_NPE, 384, 192), None, bf),
+        "whisper_dec_qkv_hop": (
+            rnd(VLM_NPE, WHISPER_BATCH * WHISPER_SEQ // VLM_NPE, 384),
+            rnd(VLM_NPE, 384, 192), None, bf),
     }
     out = []
     for name, (a, b, c, odt) in cases.items():
@@ -949,9 +1044,29 @@ def check_ssd(torch, sk, dev):
 # ---------------------------------------------------------------------------
 
 
-def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b"):
-    """``ServeEngine`` over ``RingShardedBackend(N_PE, "qlr")``, ``arch`` at
-    full width and depth, bf16 (phase 3; phase 12 (e) for qwen3-14b)."""
+def qkv_ring_hops(cfg, n_pe: int) -> int:
+    """Tile matmuls of one layer's QKV ring (n hops x 3 sinks), or 0 where
+    its gate refuses the ring because the heads or the KV heads do not
+    split ``n_pe`` ways (the sequence always does here)."""
+    return 3 * n_pe if (cfg.num_heads % n_pe == 0
+                        and cfg.num_kv_heads % n_pe == 0) else 0
+
+
+def ring_expect(cfg, n_pe: int, passes: int = 1) -> dict:
+    """Launches of one dense-decoder prefill (``passes`` 2: a training step
+    under remat "full"), reckoned from the code: per layer the QKV ring,
+    the FFN rings (AG n x 2, RS n) on the tile matmul and ring attention's
+    n flash hops."""
+    return {"tile_matmul": passes * cfg.num_layers
+            * (qkv_ring_hops(cfg, n_pe) + 3 * n_pe),
+            "flash_carry": passes * cfg.num_layers * n_pe}
+
+
+def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b",
+                     n_pe: int = N_PE):
+    """``ServeEngine`` over ``RingShardedBackend(n_pe, "qlr")``, ``arch`` at
+    full width and depth, bf16 (phase 3; phase 12 (e) for qwen3-14b; phase
+    13 (a) for internvl2-1b on the ring of 2)."""
     from repro_torch.configs import ServeConfig, get_config
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine
@@ -961,7 +1076,7 @@ def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b"):
     params = build_model(cfg).init(seed=0, device=dev)
     scfg = ServeConfig(max_batch=BATCH, max_seq_len=MAX_SEQ,
                        prefill_chunk=CHUNK)
-    backend = RingShardedBackend(cfg, scfg, params, N_PE, "qlr", device=dev)
+    backend = RingShardedBackend(cfg, scfg, params, n_pe, "qlr", device=dev)
     engine = ServeEngine(cfg, scfg, params, backend=backend, device=dev)
     rng = np.random.default_rng(0)
 
@@ -1013,14 +1128,11 @@ def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b"):
     torch.cuda.synchronize()
     per_call["decode_step"] = {k.name: k.launches - before[k.name]
                                for k in kernels}
-    # reckoned from the code, per layer: prefill runs the QKV ring (N_PE
-    # hops x 3 sinks) and the FFN rings (AG N_PE x 2, RS N_PE) on the tile
-    # matmul and ring attention's N_PE flash hops; a decode step ring
-    # decode attention's N_PE flash hops
-    expect = {"prefill": {"tile_matmul": 6 * N_PE * cfg.num_layers,
-                          "flash_carry": N_PE * cfg.num_layers},
+    # a block prefill runs the rings as ``prefill`` does; a decode step
+    # ring decode attention's n_pe flash hops
+    expect = {"prefill": ring_expect(cfg, n_pe),
               "decode_step": {"tile_matmul": 0,
-                              "flash_carry": N_PE * cfg.num_layers}}
+                              "flash_carry": n_pe * cfg.num_layers}}
     for call, want in expect.items():
         got = {k: v for k, v in per_call[call].items() if k in want}
         assert got == want, (arch, call, got, want)
@@ -1032,7 +1144,7 @@ def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b"):
         "decode_step": profile(torch, lambda: backend.step(
             np.zeros((BATCH, 1), np.int32), np.ones(BATCH, bool))),
     }
-    result = {"arch": arch, "layers": cfg.num_layers,
+    result = {"arch": arch, "layers": cfg.num_layers, "n_pe": n_pe,
               "requests": len(requests), "ticks": tick, "tokens": tokens,
               "prefill_tokens": prefill_tokens, "seconds": elapsed,
               "tokens_per_s": tokens / elapsed,
@@ -1423,86 +1535,44 @@ def train_flops(cfg, n_nonembed: int, tokens: int, seq: int) -> float:
 
 def train_full_width(torch, kernels, dev):
     """qwen3-0.6b at full width and depth, bf16 with fp32 master weights,
-    remat "full", on the ring of 4 in qlr: TRAIN_STEPS AdamW steps of
-    8 x 1024 tokens from ``DataLoader(SyntheticLM(seed=0))``."""
-    from repro_torch.configs import TrainConfig, get_config
+    remat "full", on the ring of 4 in qlr: ``train_steps`` of TRAIN_STEPS
+    AdamW steps of 8 x 1024 tokens from ``DataLoader(SyntheticLM(seed=0))``
+    (the loss must fall), and one more step profiled; the median step
+    after the first gives the rate and the MFU."""
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataLoader, SyntheticLM
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train import step as step_lib
 
     cfg = replace(get_config("qwen3-0.6b"), systolic_mode="qlr",
                   remat="full")
-    tcfg = TrainConfig(warmup_steps=0, schedule="constant",
-                       learning_rate=3e-4)
-    state = step_lib.init_state(cfg, tcfg, 0, dev)
-    train_step = step_lib.make_train_step(cfg, tcfg, N_PE)
-    loader = DataLoader(SyntheticLM(cfg.vocab_size, seed=tcfg.seed),
-                        TRAIN_BATCH, TRAIN_SEQ)
-    n_params = sum(t.numel() for t in opt.tree_leaves(state["params"]))
-    n_nonembed = n_params - state["params"]["embed"]["table"].numel()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = train_flops(cfg, n_nonembed, tokens, TRAIN_SEQ)
-    # launches per step, reckoned from the code: per layer the QKV ring
-    # (N_PE hops x 3 sinks), the FFN AG ring (N_PE x 2) and RS ring (N_PE)
-    # launch the tile matmul, ring attention the flash hop N_PE times; the
-    # "full" remat recomputes every block once in the backward
-    expect = {"flash_carry": 2 * cfg.num_layers * N_PE,
-              "tile_matmul": 2 * cfg.num_layers * 6 * N_PE}
-
-    def batch():
-        return {k: torch.as_tensor(v, device=dev)
+    loader = DataLoader(SyntheticLM(cfg.vocab_size, seed=0), TRAIN_BATCH,
+                        TRAIN_SEQ)
+    batches = [{k: torch.as_tensor(v, device=dev)
                 for k, v in next(loader).items()}
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+               for _ in range(TRAIN_STEPS + 1)]
+    loader.close()
+    # the "full" remat recomputes every block once in the backward
+    fwd = ring_expect(cfg, N_PE)
+    expect = {k: 2 * n for k, n in fwd.items()}
     for k in kernels:
         k.launches = 0
-    losses, step_s, per_step = [], [], []
-    for _ in range(TRAIN_STEPS):
-        b = batch()
-        before = {k.name: k.launches for k in kernels}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, b)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        per_step.append({k.name: k.launches - before[k.name]
-                         for k in kernels})
-    launches = {k.name: k.launches for k in kernels}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[train] {TRAIN_STEPS} steps in {sum(step_s):.1f} s")
-
-    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    result = train_steps(torch, kernels, cfg, N_PE, batches[:-1], dev,
+                         expect, "train", profiled=batches[-1])
+    losses = result["losses"]
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    for i, got in enumerate(per_step):
-        assert got == expect, f"step {i}: launches {got}, expected {expect}"
-
-    holder = {"state": state}
-
-    def one_step():
-        holder["state"], _ = train_step(holder["state"], batch())
-
-    t0 = time.perf_counter()
-    breakdown = profile(torch, one_step, top=8, warm=False,
-                        labels=BACKWARD_LABELS)
-    log(f"[train] profiled step and its analysis "
-        f"{time.perf_counter() - t0:.1f} s")
-    loader.close()
-    steady = sorted(step_s[1:])
-    median_s = steady[len(steady) // 2]
-    result = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-              "tokens_per_step": tokens, "losses": losses,
-              "step_ms": [t * 1e3 for t in step_s],
-              "median_step_ms": median_s * 1e3,
-              "tokens_per_s": tokens / median_s,
-              "model_flops": flops,
-              "train_mfu": flops / (median_s * PEAK_FLOPS["bf16"]),
-              "peak_mem_gb": peak_gb, "params": n_params,
-              "launches": launches, "launches_per_step": per_step[-1],
-              "expected_launches_per_step": expect,
-              "breakdown": breakdown}
-    log(f"[train] {json.dumps(result)}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, result["params"]
+                        - cfg.vocab_size * cfg.d_model, tokens, TRAIN_SEQ)
+    steady = sorted(result["step_ms"][1:])
+    median_ms = steady[len(steady) // 2]
+    result.update({"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                   "median_step_ms": median_ms,
+                   "tokens_per_s": tokens / (median_ms / 1e3),
+                   "model_flops": flops,
+                   "train_mfu": flops / (median_ms / 1e3
+                                         * PEAK_FLOPS["bf16"])})
+    log(f"[train] median step {median_ms:.1f} ms, "
+        f"{result['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{result['train_mfu']:.4f}")
     return result
 
 
@@ -1809,28 +1879,14 @@ def moe_prefill(torch, kernels, dev, reps: int = 3):
     # per layer, reckoned from the code: the QKV ring (N_PE hops x 3
     # sinks) and the expert FFN (3 launches over all experts) launch the
     # tile matmul, ring attention the flash hop N_PE times
-    expect = {"tile_matmul": cfg.num_layers * (3 * N_PE + 3),
+    expect = {"tile_matmul": cfg.num_layers * (qkv_ring_hops(cfg, N_PE) + 3),
               "flash_carry": cfg.num_layers * N_PE}
     with torch.inference_mode():
-        model.prefill(params, tokens)                # warm
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        walls, per_call = [], []
-        for _ in range(reps):
-            before = {k.name: k.launches for k in kernels}
-            t0 = time.perf_counter()
-            logits = model.prefill(params, tokens)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            per_call.append({k.name: k.launches - before[k.name]
-                             for k in kernels})
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        for got in per_call:
-            assert got == expect, (got, expect)
+        walls, per_call, peak, breakdown, logits = timed_calls(
+            torch, kernels, lambda: model.prefill(params, tokens), expect,
+            reps)
         assert logits.shape == (MOE_BATCH, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all()), "non-finite logits"
-        breakdown = profile(torch, lambda: model.prefill(params, tokens),
-                            top=8, warm=False)
     wall = sorted(walls)[len(walls) // 2]
     result = {"layers": cfg.num_layers, "batch": MOE_BATCH, "seq": MOE_SEQ,
               "layer_params": n_params, "walls_s": walls, "wall_s": wall,
@@ -2028,7 +2084,8 @@ def moe_train(torch, kernels, dev):
     raw = np.random.default_rng(14).integers(0, cfg.vocab_size, (1, 2049))
     batch = {"tokens": torch.as_tensor(raw[:, :-1], device=dev),
              "targets": torch.as_tensor(raw[:, 1:], device=dev)}
-    expect = {"tile_matmul": 2 * cfg.num_layers * (3 * N_PE + 3),
+    expect = {"tile_matmul": 2 * cfg.num_layers
+              * (qkv_ring_hops(cfg, N_PE) + 3),
               "flash_carry": 2 * cfg.num_layers * N_PE}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2169,7 +2226,7 @@ def zamba_expect(cfg, train: bool = False) -> dict:
     a non-reentrant checkpoint stops once every tensor it saved is back),
     then each Mamba2 layer once for its own checkpoint."""
     fwd = {"ssd_chunks": cfg.num_layers,
-           "tile_matmul": cfg.n_shared_attn * 3 * N_PE,
+           "tile_matmul": cfg.n_shared_attn * qkv_ring_hops(cfg, N_PE),
            "flash_carry": cfg.n_shared_attn * N_PE}
     if not train:
         return fwd
@@ -2197,25 +2254,11 @@ def zamba_prefill(torch, kernels, dev, reps: int = 3):
         f"({N_PE} hops x 3 sinks) tile_matmul and x {N_PE} flash_carry "
         f"hops: {expect}")
     with torch.inference_mode():
-        model.prefill(params, tokens)                # warm
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        walls, per_call = [], []
-        for _ in range(reps):
-            before = {k.name: k.launches for k in kernels}
-            t0 = time.perf_counter()
-            logits = model.prefill(params, tokens)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            per_call.append({k.name: k.launches - before[k.name]
-                             for k in kernels})
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        for got in per_call:
-            assert got == expect, (got, expect)
+        walls, per_call, peak, breakdown, logits = timed_calls(
+            torch, kernels, lambda: model.prefill(params, tokens), expect,
+            reps)
         assert logits.shape == (ZAMBA_BATCH, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all()), "non-finite logits"
-        breakdown = profile(torch, lambda: model.prefill(params, tokens),
-                            top=8, warm=False)
     wall = sorted(walls)[len(walls) // 2]
     result = {"layers": cfg.num_layers, "batch": ZAMBA_BATCH,
               "seq": ZAMBA_SEQ, "walls_s": walls, "wall_s": wall,
@@ -2245,28 +2288,10 @@ def zamba_parity(torch, kernels, dev):
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (1, ZAMBA_PARITY_SEQ)), device=dev)
 
-    def model(mode, n_pe):
-        return build_model(replace(cfg, systolic_mode=mode), n_pe=n_pe)
-
+    out = ring_parity(torch, kernels, "zamba-parity", cfg, N_PE,
+                      lambda m: m.prefill(params, tokens), zamba_expect(cfg))
     with torch.inference_mode():
-        want = model("baseline", 0).prefill(params, tokens)
-        scale = max(1.0, float(want.abs().max()))
-        out, got = {}, {}
-        for mode in ("qlr", "xqueue", "sw"):
-            before = {k.name: k.launches for k in kernels}
-            got[mode] = model(mode, N_PE).prefill(params, tokens)
-            launched = {k.name: k.launches - before[k.name] for k in kernels}
-            assert launched == zamba_expect(cfg), (mode, launched)
-            err = float((got[mode] - want).abs().max()) / scale
-            out[mode] = {"logits_rel_err": err}
-            log(f"[zamba-parity] {mode}: last logits rel err {err:.3e} (tol "
-                f"2e-3), launches {launched}")
-            assert err <= 2e-3 and bool(torch.isfinite(got[mode]).all()), \
-                (mode, err)
-        for mode in ("xqueue", "sw"):
-            assert torch.equal(got[mode], got["qlr"]), mode
-        out["modes_bit_identical"] = True
-        ring = model("qlr", N_PE)
+        ring = build_model(replace(cfg, systolic_mode="qlr"), n_pe=N_PE)
         stream = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                               ZAMBA_STREAM), device=dev)
         want = ring.prefill(params, stream)
@@ -2345,83 +2370,43 @@ def mamba_grads_vs_cpu(torch, sk, dev):
 
 
 def zamba_train(torch, kernels, dev, steps: int = 2):
-    """(c) zamba2-1.2b training at full width and depth: ``make_train_step``,
-    bf16 with fp32 masters, remat "full", AdamW at a constant 3e-4, ring
-    of 4 in qlr, ZAMBA_BATCH x ZAMBA_SEQ tokens a step from
-    ``SyntheticLM(seed=0)`` (halved, and the cut logged, only if the card
-    runs out of memory): every loss and gradient norm finite, launches per
-    step as reckoned (forward and remat), step time and peak memory, one
-    step profiled."""
-    from repro_torch.configs import TrainConfig, get_config
+    """(c) zamba2-1.2b training at full width and depth: ``train_steps``,
+    bf16 with fp32 masters, remat "full", ring of 4 in qlr, ZAMBA_BATCH x
+    ZAMBA_SEQ tokens a step from ``SyntheticLM(seed=0)`` (halved, and the
+    cut logged, only if the card runs out of memory): launches per step as
+    reckoned (forward and remat), one more step profiled."""
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataLoader, SyntheticLM
-    from repro_torch.train import step as step_lib
     cfg = replace(get_config("zamba2-1.2b"), systolic_mode="qlr",
                   remat="full")
-    tcfg = TrainConfig(warmup_steps=0, schedule="constant",
-                       learning_rate=3e-4)
     expect = zamba_expect(cfg, train=True)
     log(f"[zamba-train] reckoned per step: forward "
         f"{zamba_expect(cfg)} plus the remat recompute: {expect}")
     batch_size = ZAMBA_BATCH
     while True:
-        state = step_lib.init_state(cfg, tcfg, 0, dev)
-        train_step = step_lib.make_train_step(cfg, tcfg, N_PE)
-        loader = DataLoader(SyntheticLM(cfg.vocab_size, seed=tcfg.seed),
-                            batch_size, ZAMBA_SEQ)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, norms, step_s, per_step = [], [], [], []
+        loader = DataLoader(SyntheticLM(cfg.vocab_size, seed=0), batch_size,
+                            ZAMBA_SEQ)
+        batches = [{k: torch.as_tensor(v, device=dev)
+                    for k, v in next(loader).items()}
+                   for _ in range(steps + 1)]
+        loader.close()
         try:
-            for _ in range(steps):
-                b = {k: torch.as_tensor(v, device=dev)
-                     for k, v in next(loader).items()}
-                before = {k.name: k.launches for k in kernels}
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = train_step(state, b)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                losses.append(float(metrics["loss"]))
-                norms.append(float(metrics["grad_norm"]))
-                per_step.append({k.name: k.launches - before[k.name]
-                                 for k in kernels})
+            result = train_steps(torch, kernels, cfg, N_PE, batches[:-1],
+                                 dev, expect, "zamba-train",
+                                 profiled=batches[-1])
             break
         except torch.cuda.OutOfMemoryError:
-            loader.close()
-            del state
-            torch.cuda.empty_cache()
             if batch_size == 1:
                 raise
-            log(f"[zamba-train] cut: {batch_size} x {ZAMBA_SEQ} tokens do "
-                f"not fit, retrying with {batch_size // 2}")
-            batch_size //= 2
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
-    assert all(np.isfinite(norms)), f"non-finite gradients: {norms}"
-    for i, got in enumerate(per_step):
-        assert got == expect, f"step {i}: launches {got}, expected {expect}"
-    holder = {"state": state}
-
-    def one_step():
-        b = {k: torch.as_tensor(v, device=dev)
-             for k, v in next(loader).items()}
-        holder["state"], _ = train_step(holder["state"], b)
-
-    t0 = time.perf_counter()
-    breakdown = profile(torch, one_step, top=8, warm=False,
-                        labels=BACKWARD_LABELS)
-    log(f"[zamba-train] profiled step and its analysis "
-        f"{time.perf_counter() - t0:.1f} s")
-    loader.close()
-    del holder, state
-    result = {"batch": batch_size, "seq": ZAMBA_SEQ,
-              "cut": batch_size != ZAMBA_BATCH, "losses": losses,
-              "grad_norms": norms, "step_ms": [t * 1e3 for t in step_s],
-              "last_step_ms": step_s[-1] * 1e3,
-              "tokens_per_s": batch_size * ZAMBA_SEQ / step_s[-1],
-              "peak_mem_gb": peak_gb, "launches_per_step": per_step[-1],
-              "expected_per_step": expect, "breakdown": breakdown}
-    log(f"[zamba-train] {json.dumps(result)}")
+        # out of the handler, the failed steps' tensors are unreachable
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[zamba-train] cut: {batch_size} x {ZAMBA_SEQ} tokens do "
+            f"not fit, retrying with {batch_size // 2}")
+        batch_size //= 2
+    result.update({"batch": batch_size, "seq": ZAMBA_SEQ,
+                   "cut": batch_size != ZAMBA_BATCH})
     return result
 
 
@@ -2494,7 +2479,6 @@ def dense_prefill_parity(torch, kernels, dev, arch: str, layers: int,
     rings (N_PE x 3 tile matmuls), the QKV ring where its gate takes the
     shapes (N_PE x 3) and ring attention's N_PE flash hops."""
     from repro_torch.configs import get_config
-    from repro_torch.core import collective_matmul as cm
     from repro_torch.models import build_model
     cfg = get_config(arch)
     cfg = replace(cfg, num_layers=layers or cfg.num_layers, dtype="float32",
@@ -2502,13 +2486,9 @@ def dense_prefill_parity(torch, kernels, dev, arch: str, layers: int,
     params = build_model(cfg).init(seed=seed, device=dev)
     tokens = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, seq)), device=dev)
-    qkv_ring = cm.attn_applicable(tokens[..., None], cfg.num_heads,
-                                  cfg.num_kv_heads, cfg.resolved_head_dim,
-                                  N_PE)
+    qkv_ring = qkv_ring_hops(cfg, N_PE) > 0
     group = cfg.num_heads // cfg.num_kv_heads
-    expect = {"tile_matmul": cfg.num_layers * 3 * N_PE * (2 if qkv_ring
-                                                           else 1),
-              "flash_carry": cfg.num_layers * N_PE}
+    expect = ring_expect(cfg, N_PE)
     log(f"[{arch}] QKV ring {'runs' if qkv_ring else 'refused'} "
         f"({cfg.num_heads} heads, {cfg.num_kv_heads} KV heads on {N_PE} "
         f"PEs); ring attention folds GQA-{group} hops; reckoned per call "
@@ -2550,7 +2530,6 @@ def olmo_train_launcher(torch, kernels, dev):
     import shutil
     import signal
     from repro_torch.configs import get_config
-    from repro_torch.core import collective_matmul as cm
     from repro_torch.launch import train as launch
     out = ROOT / "build" / "olmo_train"
     shutil.rmtree(out, ignore_errors=True)
@@ -2562,15 +2541,9 @@ def olmo_train_launcher(torch, kernels, dev):
             "--n-pe", str(N_PE), "--set", "systolic_mode=qlr", "--set",
             f"num_layers={OLMO_TRAIN_LAYERS}", "--device", str(dev),
             "--ckpt-dir", str(out / "ckpt"), "--log", str(out / "log.jsonl")]
-    cfg = get_config("olmo-1b")
-    batch, seq = 8, 128                               # the launcher's
-    qkv_ring = cm.attn_applicable(torch.empty(batch, seq, 1), cfg.num_heads,
-                                  cfg.num_kv_heads, cfg.resolved_head_dim,
-                                  N_PE)
-    passes = 1 if cfg.remat == "none" else 2
-    per_step = {"tile_matmul": passes * OLMO_TRAIN_LAYERS * N_PE
-                * (6 if qkv_ring else 3),
-                "flash_carry": passes * OLMO_TRAIN_LAYERS * N_PE}
+    cfg = replace(get_config("olmo-1b"), num_layers=OLMO_TRAIN_LAYERS)
+    qkv_ring = qkv_ring_hops(cfg, N_PE) > 0   # the launcher's 128 tokens split
+    per_step = ring_expect(cfg, N_PE, passes=1 if cfg.remat == "none" else 2)
     log(f"[olmo-train] reckoned per step ({OLMO_TRAIN_LAYERS} layers, QKV "
         f"ring {'runs' if qkv_ring else 'refused'}, remat {cfg.remat}): "
         f"{per_step}")
@@ -2662,6 +2635,566 @@ def phase12(torch, kernels, sk, dev):
             torch, fk_mm, dev, "granite-34b", GRANITE_LAYERS, GRANITE_BATCH,
             ZAMBA_SEQ, seed=25))
     torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the VLM, MLA and Whisper families
+# ---------------------------------------------------------------------------
+
+VLM_PARITY = (2, 1024)             # (a): 4 layers, fp32, ring against dense
+VLM_PARITY_LAYERS = 4
+VLM_TRAIN_BATCH = 2                # (a): training steps of 2 x 2048
+MLA_PARITY_LAYERS = 3              # (b): the dense layer and 2 MoE layers
+MLA_PARITY_SEQ = 2048              # (b): 1 x 2048, the blocked path
+MLA_STREAM = (2, 16)               # (b): absorbed decode against prefill
+MLA_LAYER_STREAM = (2, 256)        # (b): the same, one MLA layer alone
+MLA_TRAIN_LAYERS = 2               # (b): AdamW's state at 27 would not fit
+WHISPER_PARITY_BATCH = 2           # (c): fp32, ring against dense
+WHISPER_DECODE = (4, 8, 64)        # (c): rows, prompt tokens, greedy steps
+
+
+def patches(torch, cfg, batch: int, dev, seed: int):
+    """Seeded stand-ins for the ViT's patch embeddings [B, P, vit_dim]."""
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (batch, cfg.num_patches, cfg.vit_dim)).astype(np.float32),
+        device=dev)
+
+
+def timed_calls(torch, kernels, fn, expect, reps: int = 3):
+    """``fn`` warmed, then ``reps`` calls each timed (synchronized) and
+    its launches counted, which must equal ``expect``; one more call
+    profiled. Returns (walls_s, launches per call, profile, last out)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, per_call = [], []
+    for _ in range(reps):
+        before = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_call.append({k.name: k.launches - before[k.name]
+                         for k in kernels})
+    for got in per_call:
+        assert got == expect, (got, expect)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    breakdown = profile(torch, fn, top=8, warm=False)
+    return walls, per_call, peak, breakdown, out
+
+
+def vlm_prefill(torch, kernels, dev):
+    """(a) internvl2-1b at full width and depth, bf16, seed 0, on the ring
+    of 2 in qlr: ``prefill`` of VLM_BATCH x VLM_SEQ tokens with seeded
+    patch embeds, 3 timed calls (the QKV, attention and FFN rings), launches
+    as reckoned, profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("internvl2-1b"), systolic_mode="qlr")
+    model = build_model(cfg, n_pe=VLM_NPE)
+    params = model.init(seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(31).integers(
+        0, cfg.vocab_size, (VLM_BATCH, VLM_SEQ)), device=dev)
+    pe = patches(torch, cfg, VLM_BATCH, dev, 32)
+    expect = ring_expect(cfg, VLM_NPE)
+    log(f"[vlm-prefill] reckoned per call: {cfg.num_layers} layers x (QKV "
+        f"ring {VLM_NPE} x 3 + FFN rings {VLM_NPE} x 3) tile_matmul and x "
+        f"{VLM_NPE} flash_carry hops (GQA-{cfg.num_heads // cfg.num_kv_heads}"
+        f", head_dim {cfg.resolved_head_dim}): {expect}")
+    with torch.inference_mode():
+        walls, per_call, peak, breakdown, logits = timed_calls(
+            torch, kernels, lambda: model.prefill(params, tokens, pe),
+            expect)
+        assert logits.shape == (VLM_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    wall = sorted(walls)[len(walls) // 2]
+    result = {"layers": cfg.num_layers, "batch": VLM_BATCH, "seq": VLM_SEQ,
+              "patches": list(pe.shape), "walls_s": walls, "wall_s": wall,
+              "tokens_per_s": VLM_BATCH * VLM_SEQ / wall,
+              "launches_per_call": per_call[-1], "expected_per_call": expect,
+              "peak_mem_gb": peak, "breakdown": breakdown}
+    log(f"[vlm-prefill] {json.dumps(result)}")
+    return result
+
+
+def ring_parity(torch, kernels, tag, cfg, n_pe, call, expect):
+    """``call(model)`` of ``cfg``'s model on the ring of ``n_pe`` in qlr,
+    xqueue and sw against the dense path (last logits within 2e-3 of their
+    scale), the modes bit for bit, each ring call's launches as
+    ``expect``."""
+    from repro_torch.models import build_model
+
+    def build(mode, n):
+        return build_model(replace(cfg, systolic_mode=mode), n_pe=n)
+
+    with torch.inference_mode():
+        want = call(build("baseline", 0))
+        scale = max(1.0, float(want.abs().max()))
+        out, got = {}, {}
+        for mode in ("qlr", "xqueue", "sw"):
+            before = {k.name: k.launches for k in kernels}
+            got[mode] = call(build(mode, n_pe))
+            launched = {k.name: k.launches - before[k.name] for k in kernels}
+            err = float((got[mode] - want).abs().max()) / scale
+            out[mode] = {"logits_rel_err": err, "launches": launched}
+            log(f"[{tag}] {mode}: last logits rel err {err:.3e} (tol 2e-3), "
+                f"launches {launched}")
+            assert err <= 2e-3 and bool(torch.isfinite(got[mode]).all()), \
+                (tag, mode, err)
+            assert launched == expect, (tag, mode, launched, expect)
+    for mode in ("xqueue", "sw"):
+        assert torch.equal(got[mode], got["qlr"]), (tag, mode)
+    out["modes_bit_identical"] = True
+    return out
+
+
+def vlm_parity(torch, kernels, dev):
+    """(a) internvl2-1b at full width, VLM_PARITY_LAYERS layers, fp32, with
+    patches: the ring of 2 against the dense path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("internvl2-1b"), num_layers=VLM_PARITY_LAYERS,
+                  dtype="float32", param_dtype="float32")
+    params = build_model(cfg).init(seed=1, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(33).integers(
+        0, cfg.vocab_size, VLM_PARITY), device=dev)
+    pe = patches(torch, cfg, VLM_PARITY[0], dev, 34)
+    return ring_parity(torch, kernels, "vlm-parity", cfg, VLM_NPE,
+                       lambda model: model.prefill(params, tokens, pe),
+                       ring_expect(cfg, VLM_NPE))
+
+
+def train_steps(torch, kernels, cfg, n_pe, batches, dev, expect, tag,
+                check=None, profiled=None):
+    """``make_train_step`` (AdamW at a constant 3e-4, fp32 masters, seed 0)
+    over ``batches``, at least two: finite losses and gradient norms,
+    launches per step as ``expect``. The step time and rate reported are
+    the last step's: the first warms the allocator and the kernels'
+    launch paths. ``check(model, params, batch)`` first sees the initial
+    parameters and the first batch; with a ``profiled`` batch, one more
+    step is profiled. Returns the result."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.optimizer import tree_leaves
+    assert len(batches) >= 2, "a step's time needs a warm-up step before it"
+    tcfg = TrainConfig(warmup_steps=0, schedule="constant",
+                       learning_rate=3e-4)
+    state = step_lib.init_state(cfg, tcfg, 0, dev)
+    extra = check(build_model(cfg, n_pe=n_pe), state["params"],
+                  batches[0]) if check else {}
+    train_step = step_lib.make_train_step(cfg, tcfg, n_pe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s, per_step = [], [], [], []
+    for b in batches:
+        before = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        per_step.append({k.name: k.launches - before[k.name]
+                         for k in kernels})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    log(f"[{tag}] {len(batches)} steps in {sum(step_s):.1f} s")
+    assert all(np.isfinite(losses)), f"non-finite loss: {losses}"
+    assert all(np.isfinite(norms)), f"non-finite gradients: {norms}"
+    for i, got in enumerate(per_step):
+        assert got == expect, f"step {i}: launches {got}, expected {expect}"
+    if profiled is not None:
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], _ = train_step(holder["state"], profiled)
+
+        t0 = time.perf_counter()
+        extra["breakdown"] = profile(torch, one_step, top=8, warm=False,
+                                     labels=BACKWARD_LABELS)
+        log(f"[{tag}] profiled step and its analysis "
+            f"{time.perf_counter() - t0:.1f} s")
+        del holder
+    del state
+    tokens = int(batches[0]["tokens"].numel())
+    result = {"layers": cfg.num_layers, "params": n_params,
+              "steps": len(batches), "tokens_per_step": tokens,
+              "losses": losses, "grad_norms": norms,
+              "step_ms": [t * 1e3 for t in step_s],
+              "last_step_ms": step_s[-1] * 1e3,
+              "tokens_per_s": tokens / step_s[-1], "peak_mem_gb": peak,
+              "launches": {k: sum(s[k] for s in per_step)
+                           for k in per_step[0]},
+              "launches_per_step": per_step[-1],
+              "expected_per_step": expect, **extra}
+    log(f"[{tag}] {json.dumps(result)}")
+    return result
+
+
+def lm_batches(torch, cfg, n: int, batch: int, seq: int, dev, seed: int):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        raw = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+        out.append({"tokens": torch.as_tensor(raw[:, :-1], device=dev),
+                    "targets": torch.as_tensor(raw[:, 1:], device=dev)})
+    return out
+
+
+def vlm_train(torch, kernels, dev, steps: int = 2):
+    """(a) two training steps of internvl2-1b at full width and depth with
+    patches (VLM_TRAIN_BATCH x VLM_SEQ tokens, bf16, remat "full", ring of
+    2 in qlr): finite, launches as reckoned (forward and recompute); before
+    them the projector's gradient at the first batch, finite and
+    nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import step as step_lib
+    cfg = replace(get_config("internvl2-1b"), systolic_mode="qlr",
+                  remat="full")
+    batches = lm_batches(torch, cfg, steps, VLM_TRAIN_BATCH, VLM_SEQ, dev, 35)
+    for i, b in enumerate(batches):
+        b["patch_embeds"] = patches(torch, cfg, VLM_TRAIN_BATCH, dev, 36 + i)
+
+    def projector_grad(model, params, batch):
+        _, _, grads = step_lib.value_and_grad(model, params, batch)
+        norms = {k: float(grads["projector"][k].float().norm())
+                 for k in ("w1", "w2")}
+        assert all(np.isfinite(v) and v > 0 for v in norms.values()), norms
+        return {"projector_grad_norms": norms}
+
+    return train_steps(torch, kernels, cfg, VLM_NPE, batches, dev,
+                       ring_expect(cfg, VLM_NPE, passes=2), "vlm-train",
+                       check=projector_grad)
+
+
+def mla_prefill(torch, kernels, dev):
+    """(b) deepseek-v2-lite-16b at full width and depth (27 layers, about
+    31 GB of bf16 parameters), seed 0, on the ring of 4 in qlr: ``prefill``
+    of MLA_BATCH x MLA_SEQ tokens, which takes ``_mla_blocked``; 3 timed
+    calls, profiled. MLA has no ring path and the expert ring refuses
+    shared experts, so only layer 0's SwiGLU (d_ff_dense 10944) runs a
+    ring: N_PE x 3 tile matmuls a call. Returns the result and the
+    parameters ((b)'s serving uses them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import BLOCKED_ATTN_THRESHOLD
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = replace(get_config("deepseek-v2-lite-16b"), systolic_mode="qlr")
+    assert MLA_SEQ >= BLOCKED_ATTN_THRESHOLD
+    model = build_model(cfg, n_pe=N_PE)
+    params = model.init(seed=0, device=dev)
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    tokens = torch.as_tensor(np.random.default_rng(41).integers(
+        0, cfg.vocab_size, (MLA_BATCH, MLA_SEQ)), device=dev)
+    expect = {"tile_matmul": cfg.first_k_dense * 3 * N_PE, "flash_carry": 0}
+    log(f"[mla-prefill] {gb:.1f} GB of parameters; reckoned per call: "
+        f"layer 0's FFN rings ({N_PE} x 3 tile_matmul), no flash hop: "
+        f"{expect}")
+    with torch.inference_mode():
+        walls, per_call, peak, breakdown, logits = timed_calls(
+            torch, kernels, lambda: model.prefill(params, tokens), expect)
+        assert logits.shape == (MLA_BATCH, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    wall = sorted(walls)[len(walls) // 2]
+    result = {"layers": cfg.num_layers, "param_gb": gb, "batch": MLA_BATCH,
+              "seq": MLA_SEQ, "walls_s": walls, "wall_s": wall,
+              "tokens_per_s": MLA_BATCH * MLA_SEQ / wall,
+              "launches_per_call": per_call[-1], "expected_per_call": expect,
+              "peak_mem_gb": peak, "breakdown": breakdown}
+    log(f"[mla-prefill] {json.dumps(result)}")
+    return result, cfg, params
+
+
+def mla_parity(torch, kernels, dev):
+    """(b) deepseek-v2-lite-16b at full width, MLA_PARITY_LAYERS layers (the
+    dense one first), fp32: the ring of 4 against the dense path on 1 x
+    MLA_PARITY_SEQ tokens (the blocked path), and, as ``tests/
+    test_parity.py``, the absorbed decode streamed over MLA_STREAM tokens
+    against the expanded prefill (2e-3).
+
+    The MoE drops assignments past an expert's capacity in a prefill (16
+    slots an expert below 137 tokens at full width) and never in a
+    one-token decode step, in the reference as in the port: the two paths
+    compute one function only while no expert can receive more than 16 of
+    the prompt's tokens. So the whole model is held over 16 tokens, and
+    layer 0's MLA alone, which drops nothing, over MLA_LAYER_STREAM."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model, moe
+    cfg = replace(get_config("deepseek-v2-lite-16b"),
+                  num_layers=MLA_PARITY_LAYERS, dtype="float32",
+                  param_dtype="float32")
+    params = build_model(cfg).init(seed=1, device=dev)
+    rng = np.random.default_rng(42)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, MLA_PARITY_SEQ)), device=dev)
+
+    out = ring_parity(torch, kernels, "mla-parity", cfg, N_PE,
+                      lambda model: model.prefill(params, tokens),
+                      {"tile_matmul": 3 * N_PE, "flash_carry": 0})
+    assert moe.expert_capacity(cfg, MLA_STREAM[1]) >= MLA_STREAM[1]
+    model = build_model(replace(cfg, systolic_mode="qlr"), n_pe=N_PE)
+    tol = 2e-3
+    lp = params["layers"][0]["attn"]
+    for name, shape in (("model", MLA_STREAM), ("layer", MLA_LAYER_STREAM)):
+        if name == "model":
+            x = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                                device=dev)
+            prefill = lambda: model.prefill(params, x)       # noqa: E731
+            cache = model.init_cache(*shape, device=dev)
+            step = lambda c, t: model.decode_step(           # noqa: E731
+                params, c, x[:, t:t + 1])
+        else:
+            gen = torch.Generator(device=dev).manual_seed(44)
+            x = torch.randn(*shape, cfg.d_model, device=dev, generator=gen)
+            prefill = lambda: attention.mla_forward(lp, x, cfg)  # noqa
+            cache = attention.init_mla_cache(cfg, *shape, dev)
+            step = lambda c, t: attention.mla_decode(        # noqa: E731
+                lp, x[:, t:t + 1], c, cfg)
+        with torch.inference_mode():
+            want = prefill()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = []
+            for t in range(shape[1]):
+                y, cache = step(cache, t)
+                got.append(y)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        # the model's last logits; the layer's every position
+        got = got[-1] if name == "model" else torch.cat(got, dim=1)
+        diff = (got - want).abs()
+        excess = float((diff - tol * want.abs()).max())
+        out[f"prefill_vs_decode_{name}"] = {
+            "tokens": list(shape), "max_abs_err": float(diff.max()),
+            "max_err_less_rtol_share": excess, "decode_s": seconds}
+        log(f"[mla-parity] {name}: expanded prefill vs {shape[1]} absorbed "
+            f"decode steps ({shape[0]} rows): max abs err "
+            f"{float(diff.max()):.3e} (atol {tol} + rtol {tol}), "
+            f"{seconds:.1f} s")
+        assert excess <= tol and bool(torch.isfinite(got).all()), name
+    return out
+
+
+def mla_serve(torch, kernels, cfg, params, dev):
+    """(b) ``serve_lockstep`` of (a)'s deepseek model (full width and depth,
+    bf16) over the launcher's 8 prompts, 16 new tokens each: MLA has no
+    block prefill, so prompts stream through the absorbed decode; no
+    kernel is on this path (MLA decode has no ring, the MoE layers take
+    the dense dispatch), so the two backends compute the same function and
+    every token must be equal."""
+    from repro_torch.configs import ServeConfig
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=64, prefill_chunk=CHUNK)
+    prompts = launcher_prompts(cfg, LAUNCH_REQUESTS)
+    stats, sampled, same, gaps = serve_lockstep(torch, kernels, cfg, scfg,
+                                                params, dev, prompts)
+    result = {"requests": len(prompts), "sampled": sampled,
+              "same_tokens": same, **stats}
+    log(f"[mla-serve] {json.dumps(result)}")
+    for name in ("dense", "ring"):
+        assert not any(stats[name]["launches"].values()), stats[name]
+    assert same == sampled, (same, sampled, gaps)
+    return result
+
+
+def mla_train(torch, kernels, dev, steps: int = 2):
+    """(b) two training steps of deepseek-v2-lite-16b at full width,
+    MLA_TRAIN_LAYERS layers (the dense one and an MoE layer; AdamW's fp32
+    state would need about 250 GB at 27), 1 x 2048 tokens, bf16, remat
+    "full", ring of 4 in qlr: finite; layer 0's FFN rings twice (forward
+    and recompute)."""
+    from repro_torch.configs import get_config
+    cfg = replace(get_config("deepseek-v2-lite-16b"),
+                  num_layers=MLA_TRAIN_LAYERS, systolic_mode="qlr",
+                  remat="full")
+    return train_steps(torch, kernels, cfg, N_PE,
+                       lm_batches(torch, cfg, steps, 1, MLA_SEQ, dev, 43),
+                       dev,
+                       {"tile_matmul": 2 * 3 * N_PE, "flash_carry": 0},
+                       "mla-train")
+
+
+def whisper_expect(cfg, n_pe: int, encode: bool = True,
+                   decode: bool = True, passes: int = 1) -> dict:
+    """Launches of a whisper-tiny call, reckoned from the code: each
+    encoder layer's QKV ring (n hops x 3 sinks) where its heads divide the
+    ring; each decoder layer's self-attention QKV ring (the same) and ring
+    attention's n flash hops; cross-attention, the encoder's attention and
+    the GELU MLP stay off the ring."""
+    qkv = qkv_ring_hops(cfg, n_pe)
+    return {"tile_matmul": passes * qkv * (cfg.enc_layers * encode
+                                           + cfg.num_layers * decode),
+            "flash_carry": passes * n_pe * cfg.num_layers * decode}
+
+
+def frames(torch, cfg, batch: int, dev, seed: int):
+    """Seeded stand-ins for the conv frontend's output [B, T, D]."""
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (batch, cfg.enc_frames, cfg.d_model)).astype(np.float32), device=dev)
+
+
+def whisper_prefill(torch, kernels, dev):
+    """(c) whisper-tiny at full width and depth (4 + 4 layers), bf16, seed
+    0, on the ring of 2 in qlr: ``encode`` of WHISPER_BATCH x 1500 frames
+    and ``prefill`` of WHISPER_BATCH x WHISPER_SEQ tokens against them, 3
+    timed calls each, launches as reckoned, the prefill profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("whisper-tiny"), systolic_mode="qlr")
+    model = build_model(cfg, n_pe=VLM_NPE)
+    params = model.init(seed=0, device=dev)
+    fr = frames(torch, cfg, WHISPER_BATCH, dev, 51)
+    tokens = torch.as_tensor(np.random.default_rng(52).integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_SEQ)), device=dev)
+    batch = {"frames": fr, "tokens": tokens}
+    out = {}
+    with torch.inference_mode():
+        for call, fn, expect in (
+                ("encode", lambda: model.encode(params, fr),
+                 whisper_expect(cfg, VLM_NPE, decode=False)),
+                ("prefill", lambda: model.prefill(params, batch),
+                 whisper_expect(cfg, VLM_NPE))):
+            walls, per_call, peak, breakdown, y = timed_calls(
+                torch, kernels, fn, expect)
+            assert bool(torch.isfinite(y).all()), call
+            wall = sorted(walls)[len(walls) // 2]
+            out[call] = {"walls_s": walls, "wall_s": wall,
+                         "launches_per_call": per_call[-1],
+                         "expected_per_call": expect, "peak_mem_gb": peak,
+                         "breakdown": breakdown}
+    assert y.shape == (WHISPER_BATCH, cfg.vocab_size)
+    out.update({"layers": [cfg.enc_layers, cfg.num_layers],
+                "batch": WHISPER_BATCH, "frames": cfg.enc_frames,
+                "seq": WHISPER_SEQ,
+                "tokens_per_s": WHISPER_BATCH * WHISPER_SEQ
+                / out["prefill"]["wall_s"]})
+    log(f"[whisper-prefill] {json.dumps(out)}")
+    return out
+
+
+def whisper_parity(torch, kernels, dev):
+    """(c) whisper-tiny at full width and depth, fp32: the ring of 2
+    against the dense path on WHISPER_PARITY_BATCH x WHISPER_SEQ tokens
+    and 1500 frames; then ``fill_cross_cache`` and greedy decoding on the
+    ring (WHISPER_DECODE: rows, prompt tokens streamed, new tokens), whose
+    last logits must equal the prefill of the whole sequence within 2e-3
+    (``tests/test_parity.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("whisper-tiny"), dtype="float32",
+                  param_dtype="float32")
+    params = build_model(cfg).init(seed=1, device=dev)
+    fr = frames(torch, cfg, WHISPER_PARITY_BATCH, dev, 53)
+    tokens = torch.as_tensor(np.random.default_rng(54).integers(
+        0, cfg.vocab_size, (WHISPER_PARITY_BATCH, WHISPER_SEQ)), device=dev)
+
+    out = ring_parity(torch, kernels, "whisper-parity", cfg, VLM_NPE,
+                      lambda model: model.prefill(
+                          params, {"frames": fr, "tokens": tokens}),
+                      whisper_expect(cfg, VLM_NPE))
+    rows, prompt_len, new = WHISPER_DECODE
+    model = build_model(replace(cfg, systolic_mode="qlr"), n_pe=VLM_NPE)
+    fr = frames(torch, cfg, rows, dev, 55)
+    seq = torch.as_tensor(np.random.default_rng(56).integers(
+        0, cfg.vocab_size, (rows, prompt_len)), device=dev)
+    with torch.inference_mode():
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = model.fill_cross_cache(
+            params, model.init_cache(rows, prompt_len + new, dev),
+            model.encode(params, fr))
+        for t in range(prompt_len):
+            logits, cache = model.decode_step(params, cache,
+                                              seq[:, t:t + 1])
+        for _ in range(new):
+            tok = logits.argmax(-1, keepdim=True)
+            seq = torch.cat([seq, tok], dim=1)
+            logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        decoded = {k.name: k.launches - before[k.name] for k in kernels}
+        want = model.prefill(params, {"frames": fr, "tokens": seq})
+    steps = prompt_len + new
+    expect = whisper_expect(cfg, VLM_NPE, decode=False)
+    expect["flash_carry"] = steps * cfg.num_layers * VLM_NPE
+    tol = 2e-3
+    diff = (logits - want).abs()
+    excess = float((diff - tol * want.abs()).max())
+    out["prefill_vs_decode"] = {
+        "rows": rows, "prompt": prompt_len, "new_tokens": new,
+        "max_abs_err": float(diff.max()), "max_err_less_rtol_share": excess,
+        "decode_s": seconds, "tokens_per_s": rows * new / seconds,
+        "launches": decoded, "expected": expect}
+    log(f"[whisper-parity] fill_cross_cache, {prompt_len} prompt and {new} "
+        f"greedy decode steps ({rows} rows, ring decode attention) against "
+        f"the prefill of all {steps} tokens: max abs err "
+        f"{float(diff.max()):.3e} (atol {tol} + rtol {tol}), "
+        f"{seconds:.1f} s, launches {decoded}")
+    assert excess <= tol and bool(torch.isfinite(logits).all())
+    assert decoded == expect, (decoded, expect)
+    return out
+
+
+def whisper_train(torch, kernels, dev, steps: int = 2):
+    """(c) two training steps of whisper-tiny at full width and depth
+    (WHISPER_BATCH x 1500 frames, WHISPER_SEQ tokens, bf16, remat "full",
+    ring of 2 in qlr): finite, launches as reckoned (forward and
+    recompute)."""
+    from repro_torch.configs import get_config
+    cfg = replace(get_config("whisper-tiny"), systolic_mode="qlr",
+                  remat="full")
+    batches = lm_batches(torch, cfg, steps, WHISPER_BATCH, WHISPER_SEQ, dev,
+                         57)
+    for i, b in enumerate(batches):
+        b["frames"] = frames(torch, cfg, WHISPER_BATCH, dev, 58 + i)
+    return train_steps(torch, kernels, cfg, VLM_NPE, batches, dev,
+                       whisper_expect(cfg, VLM_NPE, passes=2),
+                       "whisper-train")
+
+
+def phase13(torch, kernels, dev):
+    """Phase 13's runs in order, each path's launches counted from zero
+    just before it; returns {run: result} and {path: launches}."""
+    launches, out = {}, {}
+
+    def counted(name, fn):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        launches[name] = {k.name: k.launches for k in kernels}
+        log(f"[phase13] {name}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches[name]}")
+        torch.cuda.empty_cache()
+        return res
+
+    out["vlm_prefill"] = counted("vlm_prefill",
+                                 lambda: vlm_prefill(torch, kernels, dev))
+    out["vlm_parity"] = counted("vlm_parity",
+                                lambda: vlm_parity(torch, kernels, dev))
+    out["vlm_train"] = counted("vlm_train",
+                               lambda: vlm_train(torch, kernels, dev))
+    out["vlm_serve"] = counted("vlm_serve", lambda: serve_full_width(
+        torch, kernels, dev, "internvl2-1b", n_pe=VLM_NPE))
+    prefill, cfg, params = counted(
+        "mla_prefill", lambda: mla_prefill(torch, kernels, dev))
+    out["mla_prefill"] = prefill
+    out["mla_serve"] = counted("mla_serve", lambda: mla_serve(
+        torch, kernels, cfg, params, dev))
+    del params
+    torch.cuda.empty_cache()
+    out["mla_parity"] = counted("mla_parity",
+                                lambda: mla_parity(torch, kernels, dev))
+    out["mla_train"] = counted("mla_train",
+                               lambda: mla_train(torch, kernels, dev))
+    out["whisper_prefill"] = counted(
+        "whisper_prefill", lambda: whisper_prefill(torch, kernels, dev))
+    out["whisper_parity"] = counted(
+        "whisper_parity", lambda: whisper_parity(torch, kernels, dev))
+    out["whisper_train"] = counted(
+        "whisper_train", lambda: whisper_train(torch, kernels, dev))
     return out, launches
 
 
@@ -2767,6 +3300,11 @@ def main() -> int:
     p12, p12_launches = phase12(torch, kernels.ALL, sk, dev)
     log(f"[phase12] phase 12 {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p13, p13_launches = phase13(torch, main_path, dev)
+    log(f"[phase13] phase 13 {time.perf_counter() - t0:.1f} s")
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
@@ -2785,7 +3323,9 @@ def main() -> int:
                    "cannon_grid": cgrid["launches"][kern.name],
                    **{name: got[kern.name]
                       for name, got in p12_launches.items()
-                      if name != "zamba_grad"}}
+                      if name != "zamba_grad"},
+                   **{name: got.get(kern.name, 0)
+                      for name, got in p13_launches.items()}}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -2831,6 +3371,26 @@ def main() -> int:
             per_call[run] = p12[run]["launches_per_call"].get(kern.name, 0)
         per_call["olmo_train_step"] = p12["olmo_train"][
             "launches_per_step"].get(kern.name, 0)
+        # phase 13: an internvl2 prefill call, training step, block prefill
+        # and decode step; a deepseek prefill call and training step; a
+        # whisper encode, prefill, decode step and training step
+        for run in ("vlm_prefill", "mla_prefill"):
+            per_call[run] = p13[run]["launches_per_call"].get(kern.name, 0)
+        for run in ("vlm_train", "mla_train", "whisper_train"):
+            per_call[f"{run}_step"] = p13[run]["launches_per_step"].get(
+                kern.name, 0)
+        for call in ("prefill", "decode_step"):
+            per_call[f"vlm_serve_{call}"] = p13["vlm_serve"][
+                "launches_per_call"][call].get(kern.name, 0)
+        for call in ("encode", "prefill"):
+            per_call[f"whisper_{call}"] = p13["whisper_prefill"][call][
+                "launches_per_call"].get(kern.name, 0)
+        # the decode run's tile matmuls are its one encode's
+        dec = p13["whisper_parity"]["prefill_vs_decode"]
+        per_call["whisper_decode_step"] = \
+            dec["launches"]["flash_carry"] // (dec["prompt"]
+                                               + dec["new_tokens"]) \
+            if kern.name == "flash_carry" else 0
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path.values()),
@@ -2860,7 +3420,7 @@ def main() -> int:
         "train_parity": tparity, "serve_launcher": launcher,
         "moe_prefill": mprefill, "moe_parity": mparity, "moe_train": mtrain,
         "moe_serve": moeserve, "grid_prefill": gprefill,
-        "cannon_grid": cgrid, "phase12": p12}
+        "cannon_grid": cgrid, "phase12": p12, "phase13": p13}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,15 @@
 from __future__ import annotations
 
 from repro_torch.configs import (
+    deepseek_v2_lite_16b,
     granite_34b,
+    internvl2_1b,
     mamba2_1p3b,
     mixtral_8x22b,
     olmo_1b,
     qwen3_0p6b,
     qwen3_14b,
+    whisper_tiny,
     zamba2_1p2b,
 )
 from repro_torch.configs.base import (
@@ -28,6 +31,9 @@ _MODULES = {
     "qwen3-14b": qwen3_14b,
     "granite-34b": granite_34b,
     "zamba2-1.2b": zamba2_1p2b,
+    "internvl2-1b": internvl2_1b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+    "whisper-tiny": whisper_tiny,
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the port.
 
 The fields the ported slices read (dense serving and training, Mamba2,
-MoE, the Zamba2 hybrid), with the reference's names and defaults
+MoE with MLA, the Zamba2 hybrid, the Whisper encoder-decoder and the
+InternVL2 patch projector), with the reference's names and defaults
 (``repro/configs/base.py``), so a configuration reads the same in both
-packages. Fields of families the port does not cover yet (MLA, enc-dec,
-VLM) are left out until their slice lands.
+packages.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import Any
 class ModelConfig:
     # identity
     name: str = "unnamed"
-    family: str = "dense"
+    family: str = "dense"  # dense | moe | ssm | hybrid | encdec | vlm
     source: str = ""
 
     # transformer backbone
@@ -39,8 +39,15 @@ class ModelConfig:
     mlp_kind: str = "swiglu"       # swiglu | gelu
 
     # attention flavor
-    attention_type: str = "gqa"    # gqa only in this slice
+    attention_type: str = "gqa"    # gqa | mla
     sliding_window: int = 0        # 0 -> full attention (mixtral: 4096)
+
+    # MLA (DeepSeek-V2)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # MoE
     num_experts: int = 0
@@ -65,6 +72,15 @@ class ModelConfig:
     # hybrid (Zamba2): shared attention block interleaved with mamba stack
     attn_every: int = 0            # shared attn block every N mamba layers
     n_shared_attn: int = 0         # number of shared-block invocations
+
+    # encoder-decoder (Whisper)
+    enc_layers: int = 0
+    enc_frames: int = 1500         # stubbed conv frontend output length
+    max_target_positions: int = 448
+
+    # VLM (InternVL2): stubbed ViT patch embeddings
+    vit_dim: int = 0
+    num_patches: int = 0
 
     # numerics
     dtype: str = "bfloat16"        # activation/compute dtype

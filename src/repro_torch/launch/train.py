@@ -15,8 +15,12 @@ mamba2-1.3b, which has no ring: asking it for one raises; they engage when
 ``--set systolic_mode=...`` names a link mode and the shapes divide), and
 ``--device`` the device (default ``cuda``; it raises when there is no
 GPU, and runs on the CPU only when asked to with ``--device cpu``).
-``--arch`` takes every ported config: qwen3-0.6b, qwen3-14b, olmo-1b,
-granite-34b, mixtral-8x22b, mamba2-1.3b and zamba2-1.2b.
+``--arch`` takes the ported decoder configs: qwen3-0.6b, qwen3-14b,
+olmo-1b, granite-34b, mixtral-8x22b, mamba2-1.3b, zamba2-1.2b,
+deepseek-v2-lite-16b and internvl2-1b (on tokens alone). The token stream
+carries no audio frames, so whisper-tiny trains through
+``train.step.make_train_step`` with ``frames`` in its batch, as in the
+reference.
 
 Observability: --metrics-out FILE.json snapshots the run's registry
 (steps/tokens counters, loss/lr gauges, step-time histogram) as JSON plus

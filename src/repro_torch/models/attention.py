@@ -1,12 +1,20 @@
-"""GQA attention (RoPE, qk-norm, sliding window, bias) of the dense slice.
+"""Attention: GQA (RoPE, qk-norm, sliding window, bias), MLA (DeepSeek-V2)
+and the Whisper decoder's cross-attention.
 
-Mirrors the GQA half of ``repro/models/attention.py``. Where the reference
+Mirrors ``repro/models/attention.py``. Where the reference
 asks its mesh context whether a 'model' ring is present, the port takes
 ``n_pe``, the size of the emulated ring (0: no ring). When
 ``cfg.systolic_mode`` is a link mode and the shapes admit it, the QKV
 projections run as one systolic ring (``core/collective_matmul``), prefill
 attention as ring attention and decode attention as ring decode
-(``core/ring_attention``).
+(``core/ring_attention``). MLA and cross-attention have no ring path, as
+in the reference.
+
+MLA prefill expands the latent into per-head K/V (streaming KV blocks
+through an online softmax at ``S >= BLOCKED_ATTN_THRESHOLD``); MLA decode
+uses the absorbed formulation (the query projected into the latent space,
+attention against the compressed cache), so a token's work scales with
+the latent rank, not the expanded KV width.
 """
 from __future__ import annotations
 
@@ -277,3 +285,218 @@ def gqa_decode(params, x, cache, cfg: ModelConfig, active=None,
     else:
         pos += active.to(pos.dtype)
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig):
+    d = cfg.d_model
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h = cfg.num_heads
+    dt = pdtype(cfg)
+    return {
+        "wq": param(gen, (d, h, dn + dr), dt),
+        "w_dkv": param(gen, (d, r + dr), dt),
+        "kv_norm": param(gen, (r,), dt, "ones"),
+        "w_uk": param(gen, (r, h, dn), dt),
+        "w_uv": param(gen, (r, h, dv), dt),
+        "wo": param(gen, (h, dv, d), dt),
+    }
+
+
+def _mla_latent(params, x, cfg: ModelConfig, positions):
+    """x -> (normalized latent c [B,S,r], roped shared key k_rope
+    [B,S,dr]); RoPE sees k_rope through an inserted head axis."""
+    dt = adtype(cfg)
+    r = cfg.kv_lora_rank
+    ckv = torch.einsum("bsd,dr->bsr", x.to(dt), params["w_dkv"].to(dt))
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+    c = rms_norm_simple(c, params["kv_norm"])
+    k_rope = apply_rope(k_rope[..., None, :], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return c, k_rope
+
+
+def _mla_queries(params, x, cfg: ModelConfig, positions):
+    """x -> (q_nope [B,S,H,dn], roped q_rope [B,S,H,dr])."""
+    dt = adtype(cfg)
+    dn = cfg.qk_nope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x.to(dt), params["wq"].to(dt))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_forward(params, x, cfg: ModelConfig, positions=None):
+    """Full-sequence causal MLA (train / prefill), expanded formulation.
+    x: [B,S,D] -> [B,S,D]."""
+    b, s, _ = x.shape
+    dt = adtype(cfg)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_queries(params, x, cfg, positions)
+    c, k_rope = _mla_latent(params, x, cfg, positions)
+    scale = _mla_scale(cfg)
+    if s >= BLOCKED_ATTN_THRESHOLD:
+        out = _mla_blocked(params, q_nope, q_rope, c, k_rope, cfg, scale)
+    else:
+        k_nope = torch.einsum("bsr,rhk->bshk", c, params["w_uk"].to(dt))
+        v = torch.einsum("bsr,rhk->bshk", c, params["w_uv"].to(dt))
+        scores = (torch.einsum("bshk,bthk->bhst", q_nope.float(),
+                               k_nope.float())
+                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                 k_rope.float())) * scale
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhst,bthk->bshk", probs, v.float())
+    return torch.einsum("bshk,hkd->bsd", out.to(dt), params["wo"].to(dt))
+
+
+def _mla_blocked(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, scale,
+                 kv_block: int = KV_BLOCK):
+    """Streaming MLA prefill: K/V expanded from the latent one block at a
+    time and folded into a carried online softmax. S is padded to whole
+    blocks; keys past S are masked. Returns fp32 [B,S,H,dv]."""
+    dt = adtype(cfg)
+    b, s, h, _ = q_nope.shape
+    dev = q_nope.device
+    nblk = -(-s // kv_block)
+    pad = nblk * kv_block - s
+    c_p = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    kr_p = torch.nn.functional.pad(k_rope, (0, 0, 0, pad))
+    q_pos = torch.arange(s, device=dev)
+    qn32, qr32 = q_nope.float(), q_rope.float()
+    w_uk, w_uv = params["w_uk"].to(dt), params["w_uv"].to(dt)
+    m = torch.full((b, h, s), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, s, cfg.v_head_dim), dtype=torch.float32,
+                      device=dev)
+    for blk in range(nblk):
+        cut = slice(blk * kv_block, (blk + 1) * kv_block)
+        cblk = c_p[:, cut].to(dt)
+        k_pos = blk * kv_block + torch.arange(kv_block, device=dev)
+        k_nope = torch.einsum("btr,rhk->bthk", cblk, w_uk)
+        vblk = torch.einsum("btr,rhk->bthk", cblk, w_uv)
+        sc = (torch.einsum("bshk,bthk->bhst", qn32, k_nope.float())
+              + torch.einsum("bshk,btk->bhst", qr32,
+                             kr_p[:, cut].float())) * scale
+        mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] < s)
+        sc = torch.where(mask, sc, torch.full_like(sc, _NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthk->bhsk", p,
+                                                   vblk.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]          # [B,H,S,dv]
+    return out.transpose(1, 2)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, device):
+    """Zeroed latent cache: the normalized latent and the roped shared
+    key per position."""
+    dt = adtype(cfg)
+    return {
+        "c": torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dt,
+                         device=device),
+        "k_rope": torch.zeros((batch, seq_len, cfg.qk_rope_head_dim),
+                              dtype=dt, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+MLA_CACHE_AXES = {
+    "c": ("cache_batch", "cache_seq", None),
+    "k_rope": ("cache_batch", "cache_seq", None),
+    "pos": ("cache_batch",),
+}
+
+
+def mla_decode(params, x, cache, cfg: ModelConfig, active=None):
+    """Absorbed-matrix MLA decode: attention in the latent space, its
+    latent products in fp32. x: [B,1,D]. The cache is updated in place as
+    ``gqa_decode`` updates its own: the write goes to ``min(pos,
+    s_cache - 1)``, an inactive row rewrites its slot's old value and
+    keeps its position. Returns (y [B,1,D], cache)."""
+    dt = adtype(cfg)
+    pos = cache["pos"]                                       # [B]
+    b = x.shape[0]
+    c_all, kr_all = cache["c"], cache["k_rope"]
+    s_cache = c_all.shape[1]
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_queries(params, x, cfg, positions)  # [B,1,H,*]
+    c_new, kr_new = _mla_latent(params, x, cfg, positions)    # [B,1,*]
+    write_idx = torch.clamp(pos, max=s_cache - 1).long()
+    rows = torch.arange(b, device=x.device)
+    c_new, kr_new = c_new[:, 0].to(c_all.dtype), kr_new[:, 0].to(kr_all.dtype)
+    if active is not None:
+        keep = ~active[:, None]
+        c_new = torch.where(keep, c_all[rows, write_idx], c_new)
+        kr_new = torch.where(keep, kr_all[rows, write_idx], kr_new)
+    c_all[rows, write_idx] = c_new
+    kr_all[rows, write_idx] = kr_new
+
+    # absorb: q_lat[b,h,r] = q_nope . W_uk
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
+                         params["w_uk"].float())
+    scores = (torch.einsum("bshr,btr->bhst", q_lat, c_all.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             kr_all.float())) * _mla_scale(cfg)
+    valid = torch.arange(s_cache, device=x.device)[None] <= pos[:, None]
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhst,btr->bshr", probs, c_all.float())
+    out = torch.einsum("bshr,rhk->bshk", ctx_lat, params["w_uv"].float())
+    y = torch.einsum("bshk,hkd->bsd", out.to(dt), params["wo"].to(dt))
+    if active is None:
+        pos += 1
+    else:
+        pos += active.to(pos.dtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (Whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(gen, cfg: ModelConfig):
+    """GQA's projections with a query bias only (no ``bk``/``bv``)."""
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    dt = pdtype(cfg)
+    return {
+        "wq": param(gen, (d, cfg.num_heads, hd), dt),
+        "wk": param(gen, (d, cfg.num_kv_heads, hd), dt),
+        "wv": param(gen, (d, cfg.num_kv_heads, hd), dt),
+        "wo": param(gen, (cfg.num_heads, hd, d), dt),
+        "bq": param(gen, (cfg.num_heads, hd), dt, "zeros"),
+    }
+
+
+def cross_kv(params, memory, cfg: ModelConfig):
+    """Cross-attention K/V [B,T,Kv,hd] of the encoder output [B,T,D]."""
+    dt = adtype(cfg)
+    memory = memory.to(dt)
+    k = torch.einsum("btd,dhk->bthk", memory, params["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", memory, params["wv"].to(dt))
+    return k, v
+
+
+def cross_attend(params, x, k, v, cfg: ModelConfig):
+    """x: [B,S,D] queries against precomputed memory K/V (non-causal)."""
+    dt = adtype(cfg)
+    q = torch.einsum("bsd,dhk->bshk", x.to(dt), params["wq"].to(dt))
+    q = q + params["bq"].to(dt)
+    out = plain_attention(q, k, v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out.to(dt), params["wo"].to(dt))

@@ -117,8 +117,11 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def sinusoidal_positions(num_pos: int, d: int, device="cpu") -> torch.Tensor:
-    """Whisper-style sinusoidal position table [num_pos, d], fp32."""
+def sinusoidal_positions(num_pos: int, d: int,
+                         device="cuda") -> torch.Tensor:
+    """Whisper-style sinusoidal position table [num_pos, d], fp32, on
+    ``device`` (the caller's; ``cuda`` unless it asks otherwise)."""
+    device = resolve_device(device)
     log_ts_incr = math.log(10000.0) / max(d // 2 - 1, 1)
     inv = torch.exp(-log_ts_incr * torch.arange(d // 2, dtype=torch.float32,
                                                 device=device))

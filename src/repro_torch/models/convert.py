@@ -9,8 +9,13 @@ dense layers first (dense: ``{norm1, norm2, attn, mlp}``; MoE: ``moe`` in
 place of ``mlp``; Mamba2: ``{norm, mixer}``). A Zamba2 tree keeps its
 ``shared`` block unstacked, and its stacks ``adapters`` [n_super],
 ``mamba`` [n_super, inner] and ``tail`` [n_tail] become a list, a list of
-lists and a list. A non-parametric norm is an empty dict in both
-packages, and is carried as one. ``params_from_reference``
+lists and a list. A VLM's ``projector`` is unstacked in both packages.
+A Whisper tree keeps ``embed``, the untied ``head``, ``enc_norm``,
+``dec_norm`` and ``dec_pos`` unstacked, and its stacks ``enc_layers`` and
+``dec_layers`` become two lists (it has no ``final_norm``). MLA's
+attention leaves (``kv_norm`` 1-D) need nothing of their own. A
+non-parametric norm is an empty dict in both packages, and is carried as
+one. ``params_from_reference``
 takes that tree with numpy leaves (``np.asarray`` of each value, bfloat16
 included) so both packages compute the same function in the tests.
 ``state_from_reference`` / ``state_to_reference`` carry a whole train
@@ -60,6 +65,11 @@ def _first_leaf(tree):
 
 # Zamba2's stacks and their depth (leading stacked dimensions)
 HYBRID_STACKS = {"adapters": 1, "mamba": 2, "tail": 1}
+# Whisper's layer stacks, each one list in the port
+ENCDEC_STACKS = ("enc_layers", "dec_layers")
+# subtrees that neither package stacks
+UNSTACKED = ("embed", "final_norm", "head", "shared", "projector",
+             "enc_norm", "dec_norm", "dec_pos")
 
 
 def _from_reference(tree, dt, dev):
@@ -81,15 +91,13 @@ def _from_reference(tree, dt, dev):
         return [[convert(tree[group], (i, j)) for j in range(dims[1])]
                 for i in range(dims[0])]
 
-    out = {
-        "embed": convert(tree["embed"]),
-        "final_norm": convert(tree["final_norm"]),
-        "head": convert(tree.get("head", {})),
-    }
+    out = {k: convert(tree[k], name=k) for k in UNSTACKED if k in tree}
+    out.setdefault("head", {})
     if "shared" in tree:
-        out["shared"] = convert(tree["shared"])
         out.update({g: stack(g, depth) for g, depth in HYBRID_STACKS.items()
                     if g in tree})
+    elif "enc_layers" in tree:
+        out.update({g: stack(g) for g in ENCDEC_STACKS})
     else:
         out["layers"] = stack("dense_layers") + stack("layers")
     return out
@@ -152,15 +160,13 @@ def _stack(items):
 
 def params_to_reference(params):
     """The port's parameters -> the reference's layout, float32 numpy."""
-    out = {
-        "embed": _map(params["embed"], _as_np),
-        "final_norm": _map(params["final_norm"], _as_np),
-        "head": _map(params["head"], _as_np),
-    }
+    out = {k: _map(params[k], _as_np) for k in UNSTACKED if k in params}
     if "shared" in params:
-        out["shared"] = _map(params["shared"], _as_np)
         out.update({g: _stack(params[g]) for g in HYBRID_STACKS
                     if g in params})
+        return out
+    if "enc_layers" in params:
+        out.update({g: _stack(params[g]) for g in ENCDEC_STACKS})
         return out
     groups = [g for g, _ in layer_groups(params["layers"])]
     for group in dict.fromkeys(groups):

@@ -1,7 +1,8 @@
 """Decoder-only transformer LM: the dense family (qwen3 / olmo-style
-backbones) and the MoE family (Mixtral; DeepSeek-style ``first_k_dense``).
+backbones), the MoE family (Mixtral; DeepSeek-V2 with MLA and
+``first_k_dense``) and the InternVL2 VLM fusion.
 
-Mirrors the GQA paths of ``repro/models/transformer.py``. The reference
+Mirrors ``repro/models/transformer.py``. The reference
 scans stacked layer parameters (an MoE model keeps its ``first_k_dense``
 leading dense layers in a second stack, ``dense_layers``); here
 ``params["layers"]`` is one list of per-layer dicts, the dense layers
@@ -11,6 +12,14 @@ the reference's stacked GQA layout, ``cache["layers"][name]`` with a
 leading dimension over all layers, and each layer updates its slice in
 place. MoE layers add their router's auxiliary loss to ``hidden_states``
 and ``loss``.
+
+``attention_type="mla"`` swaps each layer's attention for MLA (the
+expanded form over a full sequence, the absorbed form in decode, a latent
+cache ``{c, k_rope, pos}``); MLA has no ring path, as in the reference.
+The ``vlm`` family adds a ``projector`` (a norm at ``vit_dim``, two
+products around a tanh GELU) whose output overwrites the leading
+positions of the token embeddings when ``patch_embeds`` [B, P, vit_dim]
+are given; decode takes no patches.
 
 ``n_pe`` is the size of the emulated systolic ring (0: none). With
 ``cfg.systolic_mode`` set to a link mode the full-sequence FFN runs as the
@@ -32,6 +41,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -52,6 +62,8 @@ from repro_torch.models.common import (
     init_norm,
     lm_logits,
     lm_loss_chunked,
+    param,
+    pdtype,
     resolve_device,
 )
 
@@ -91,7 +103,8 @@ def init_block(gen, cfg: ModelConfig, moe_layer: bool = False):
     p = {
         "norm1": init_norm(gen, cfg),
         "norm2": init_norm(gen, cfg),
-        "attn": attn.init_gqa(gen, cfg),
+        "attn": (attn.init_mla(gen, cfg) if cfg.attention_type == "mla"
+                 else attn.init_gqa(gen, cfg)),
     }
     if moe_layer:
         p["moe"] = moe_lib.init_moe(gen, cfg)
@@ -128,9 +141,14 @@ def _ffn(lp, h, cfg: ModelConfig, n_pe: int, *, full_seq: bool):
 
 
 def _block(lp, x, cfg: ModelConfig, n_pe: int):
-    """One block over a full sequence -> (x, aux, (k, v))."""
+    """One block over a full sequence -> (x, aux, (k, v)); MLA returns no
+    K/V (None)."""
     h = apply_norm(lp["norm1"], x, cfg)
-    a, kv = attn.gqa_forward(lp["attn"], h, cfg, return_kv=True, n_pe=n_pe)
+    if cfg.attention_type == "mla":
+        a, kv = attn.mla_forward(lp["attn"], h, cfg), None
+    else:
+        a, kv = attn.gqa_forward(lp["attn"], h, cfg, return_kv=True,
+                                 n_pe=n_pe)
     x = x + a
     h = apply_norm(lp["norm2"], x, cfg)
     y, aux = _ffn(lp, h, cfg, n_pe, full_seq=True)
@@ -155,8 +173,11 @@ def block_decode(lp, x, cache, cfg: ModelConfig, active=None, n_pe: int = 0):
     """One-token decode of a block; an MoE layer takes the dense dispatch
     (one token does not divide the ring), as in the reference."""
     h = apply_norm(lp["norm1"], x, cfg)
-    a, cache = attn.gqa_decode(lp["attn"], h, cache, cfg, active=active,
-                               n_pe=n_pe)
+    if cfg.attention_type == "mla":
+        a, cache = attn.mla_decode(lp["attn"], h, cache, cfg, active=active)
+    else:
+        a, cache = attn.gqa_decode(lp["attn"], h, cache, cfg, active=active,
+                                   n_pe=n_pe)
     x = x + a
     h = apply_norm(lp["norm2"], x, cfg)
     y, _ = _ffn(lp, h, cfg, n_pe, full_seq=False)
@@ -169,13 +190,16 @@ def block_decode(lp, x, cache, cfg: ModelConfig, active=None, n_pe: int = 0):
 
 
 class TransformerLM:
-    """Dense or MoE GQA decoder LM over an emulated ring of ``n_pe`` PEs."""
+    """Dense, MoE or VLM decoder LM (GQA or MLA) over an emulated ring of
+    ``n_pe`` PEs."""
 
     def __init__(self, cfg: ModelConfig, n_pe: int = 0):
-        if cfg.family not in ("dense", "moe") or cfg.attention_type != "gqa":
+        if cfg.family not in ("dense", "moe", "vlm") \
+                or cfg.attention_type not in ("gqa", "mla"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and MoE GQA families are "
-                "ported")
+                f"{cfg.name}: TransformerLM takes the dense, moe and vlm "
+                f"families with gqa or mla attention, got {cfg.family!r} "
+                f"with {cfg.attention_type!r}")
         self.cfg = cfg
         self.n_pe = n_pe
         self.moe = cfg.family == "moe"
@@ -188,22 +212,47 @@ class TransformerLM:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         cfg = self.cfg
         dense = cfg.first_k_dense
-        return {
+        p = {
             "embed": init_embedding(gen, cfg),
             "final_norm": init_norm(gen, cfg),
             "head": init_lm_head(gen, cfg),
             "layers": [init_block(gen, cfg, moe_layer=self.moe and i >= dense)
                        for i in range(cfg.num_layers)],
         }
+        if cfg.family == "vlm":
+            p["projector"] = {
+                "w1": param(gen, (cfg.vit_dim, cfg.d_model), pdtype(cfg)),
+                "w2": param(gen, (cfg.d_model, cfg.d_model), pdtype(cfg)),
+                "norm": init_norm(gen, cfg, d=cfg.vit_dim),
+            }
+        return p
 
     # ------------------------------------------------------------- forward
-    def hidden_states(self, params, tokens):
-        """tokens [B,S] -> (final-norm hidden states [B,S,D], aux loss).
+    def _embed_inputs(self, params, tokens, patch_embeds=None):
+        """Token embeddings; in the vlm family with ``patch_embeds``
+        [B,P,vit_dim], the projected patches overwrite the first min(P, S)
+        positions (image tokens occupy the sequence prefix)."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens, cfg)
+        if cfg.family != "vlm" or patch_embeds is None:
+            return x
+        dt = adtype(cfg)
+        proj = params["projector"]
+        pe = apply_norm(proj["norm"], patch_embeds.to(dt), cfg)
+        pe = torch.matmul(pe, proj["w1"].to(dt))
+        pe = F.gelu(pe, approximate="tanh")
+        pe = torch.matmul(pe, proj["w2"].to(dt))
+        n = min(pe.shape[1], x.shape[1])
+        return torch.cat([pe[:, :n], x[:, n:]], dim=1)
+
+    def hidden_states(self, params, tokens, patch_embeds=None):
+        """tokens [B,S] (and, in the vlm family, optional ``patch_embeds``
+        [B,P,vit_dim]) -> (final-norm hidden states [B,S,D], aux loss).
         Blocks run under ``cfg.remat`` while gradients are recorded."""
         cfg = self.cfg
         body = remat(functools.partial(block_forward, cfg=cfg,
                                        n_pe=self.n_pe), cfg)
-        x = embed(params["embed"], tokens, cfg)
+        x = self._embed_inputs(params, tokens, patch_embeds)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             x, aux = body(lp, x)
@@ -212,31 +261,36 @@ class TransformerLM:
 
     def loss(self, params, batch):
         """Training loss: ``batch`` holds ``tokens`` and ``targets`` [B,S]
-        and optionally a ``mask`` [B,S]. Returns (loss, {"ce", "aux"})."""
-        x, aux = self.hidden_states(params, batch["tokens"])
+        and optionally a ``mask`` [B,S] (and ``patch_embeds`` in the vlm
+        family). Returns (loss, {"ce", "aux"})."""
+        x, aux = self.hidden_states(params, batch["tokens"],
+                                    batch.get("patch_embeds"))
         ce = lm_loss_chunked(params["head"], params["embed"], x,
                              batch["targets"], self.cfg,
                              mask=batch.get("mask"))
         return ce + aux, {"ce": ce, "aux": aux}
 
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, patch_embeds=None):
         """Forward pass returning last-position logits [B, V]."""
-        x, _ = self.hidden_states(params, tokens)
+        x, _ = self.hidden_states(params, tokens, patch_embeds)
         return lm_logits(params["head"], params["embed"], x[:, -1], self.cfg)
 
     # ------------------------------------------------------------- decode
     def init_cache(self, batch: int, seq_len: int, device="cuda"):
         dev = resolve_device(device)
-        one = attn.init_gqa_cache(self.cfg, batch, seq_len, dev)
+        init = attn.init_mla_cache if self.cfg.attention_type == "mla" \
+            else attn.init_gqa_cache
+        one = init(self.cfg, batch, seq_len, dev)
         layers = self.cfg.num_layers
         return {"layers": {name: t.unsqueeze(0).repeat(
             layers, *([1] * t.dim())) for name, t in one.items()}}
 
     def cache_axes(self):
-        """Logical axes of every cache leaf: GQA's, behind the layer
-        dimension (MoE layers keep GQA caches)."""
-        return {"layers": {k: (None,) + v
-                           for k, v in attn.GQA_CACHE_AXES.items()}}
+        """Logical axes of every cache leaf: GQA's or MLA's, behind the
+        layer dimension."""
+        axes = attn.MLA_CACHE_AXES if self.cfg.attention_type == "mla" \
+            else attn.GQA_CACHE_AXES
+        return {"layers": {k: (None,) + v for k, v in axes.items()}}
 
     @staticmethod
     def _layer_cache(cache, i: int):
@@ -257,9 +311,9 @@ class TransformerLM:
         length-1, cache).
         """
         cfg = self.cfg
-        if cfg.sliding_window:
+        if cfg.sliding_window or cfg.attention_type != "gqa":
             raise NotImplementedError("prefill_into_cache needs full "
-                                      "attention caches")
+                                      "GQA attention caches")
         c = tokens.shape[0]
         layers = cache["layers"]
         b = layers["pos"].shape[1]

@@ -130,8 +130,9 @@ class DecodeBackend:
 
     @property
     def supports_prefill(self) -> bool:
-        """Block prefill needs the model's ``prefill_into_cache`` (Mamba2
-        and Zamba2 have none: their prompts stream through the decode
+        """Block prefill needs the model's ``prefill_into_cache`` and a
+        full GQA cache (Mamba2, Zamba2 and Whisper have none, and MLA's
+        cache holds latents: their prompts stream through the decode
         step)."""
         return (self.scfg.prefill_chunk > 0
                 and hasattr(self.model, "prefill_into_cache")

@@ -897,3 +897,168 @@ def test_cuda_ring_moe_smoke_modes_bit_identical(cuda, name):
         torch.testing.assert_close(ys[mode], want, rtol=1e-4, atol=1e-4)
     assert torch.equal(ys["sw"], ys["qlr"])
     assert torch.equal(ys["xqueue"], ys["qlr"])
+
+
+# ---------------------------------------------------------------------------
+# the VLM, MLA and Whisper families on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["internvl2_gqa7", "whisper_mha6"])
+def test_cuda_flash_carry_head_dim64_hops(cuda, shape):
+    """Hop 1 of the ring-attention prefill hops of the VLM and Whisper
+    families at head_dim 64 (the CUDA-core body), sequence cut to 256 a
+    PE: internvl2-1b's 14 heads over 2 KV heads (a GQA group of 7) and
+    whisper-tiny's decoder, 6 heads (MHA). The state within 2e-4 of its
+    scale, as phase 2 of chip_smoke.py holds it."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n, b, s_l, hd = 2, 4, 256, 64
+    h, kvh = (14, 2) if shape == "internvl2_gqa7" else (6, 6)
+    pe = torch.arange(n, device=cuda).repeat_interleave(b)
+    bf = torch.bfloat16
+    q = torch.randn(n * b, s_l, h, hd, generator=g, device=cuda).to(bf)
+    k = torch.randn(n * b, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    v = torch.randn(n * b, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    m = torch.randn(n * b, h, s_l, generator=g, device=cuda)
+    m[::3] = -1e30
+    l = torch.rand(n * b, h, s_l, generator=g, device=cuda) + 1
+    acc = torch.randn(n * b, h, s_l, hd, generator=g, device=cuda)
+    big = torch.full((n * b,), 2 ** 30, device=cuda)
+    args = (q, k, v, m, l, acc, pe * s_l, (pe - 1) % n * s_l, big, None)
+    opts = dict(causal=True, window=0, normalize=False)
+    before = fk.FLASH_CARRY.launches
+    got = fk.flash_carry_cuda(*args, **opts)
+    assert fk.FLASH_CARRY.launches == before + 1
+    want = fk.flash_carry_plain(*args, **opts)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want[2].abs().max()))
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max()) <= 2e-4 * scale
+
+
+def _move(v, dev):
+    """Tensors, and dicts, lists and tuples of them, onto ``dev``."""
+    if isinstance(v, dict):
+        return {k: _move(x, dev) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_move(x, dev) for x in v)
+    return v.to(dev)
+
+
+def _family_vs_cpu(cuda, arch, n_pe, batch_fn, expect):
+    """SMOKE ``arch`` in fp32 on a ring of ``n_pe`` in qlr: prefill logits
+    and the loss and gradients on the card (its kernels launched as
+    ``expect`` reckons them) against the same on the CPU (logits and loss
+    1e-4, gradients 1e-3). ``batch_fn`` gives ``prefill``'s arguments
+    after the parameters and the training batch."""
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    cfg = replace(get_smoke_config(arch), dtype="float32",
+                  param_dtype="float32", systolic_mode="qlr")
+    model = build_model(cfg, n_pe=n_pe)
+    params = model.init(0, device="cpu")
+    prefill_args, batch = batch_fn(cfg, torch.Generator().manual_seed(1))
+    counts = lambda: {"tile_matmul": mk.TILE_MATMUL.launches,   # noqa: E731
+                      "flash_carry": fk.FLASH_CARRY.launches}
+    before = counts()
+    dev_params = _move(params, cuda)
+    with torch.no_grad():
+        got = model.prefill(dev_params, *_move(prefill_args, cuda))
+    loss, _, grads = step_lib.value_and_grad(model, dev_params,
+                                             _move(batch, cuda))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    assert launched == expect(cfg), (launched, expect(cfg))
+    with torch.no_grad():
+        want = model.prefill(params, *prefill_args)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    want_loss, _, want_grads = step_lib.value_and_grad(model, params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4
+    for a, b in zip(opt.tree_leaves(grads), opt.tree_leaves(want_grads)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+def _tokens(cfg, g, b=2, s=16):
+    raw = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+    return raw[:, :-1], raw[:, 1:]
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_ring_prefill_and_grads_vs_cpu(cuda):
+    """internvl2 SMOKE with patches on a ring of 2: the QKV, attention and
+    FFN rings on the card, twice a block under remat "full"."""
+    def batch(cfg, g):
+        tokens, targets = _tokens(cfg, g)
+        patches = torch.randn(2, cfg.num_patches, cfg.vit_dim, generator=g)
+        return (tokens, patches), {"tokens": tokens, "targets": targets,
+                                   "patch_embeds": patches}
+
+    def expect(cfg):
+        # prefill + forward + recompute: (QKV 3n + FFN 3n) and n hops
+        return {"tile_matmul": 3 * cfg.num_layers * 12,
+                "flash_carry": 3 * cfg.num_layers * 2}
+    _family_vs_cpu(cuda, "internvl2-1b", 2, batch, expect)
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_ring_prefill_and_grads_vs_cpu(cuda):
+    """deepseek SMOKE on a ring of 2: MLA and the MoE layers (shared
+    experts) off the ring, layer 0's SwiGLU on the FFN ring."""
+    def batch(cfg, g):
+        tokens, targets = _tokens(cfg, g)
+        return (tokens,), {"tokens": tokens, "targets": targets}
+
+    def expect(cfg):
+        return {"tile_matmul": 3 * cfg.first_k_dense * 6, "flash_carry": 0}
+    _family_vs_cpu(cuda, "deepseek-v2-lite-16b", 2, batch, expect)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_ring_prefill_and_grads_vs_cpu(cuda):
+    """whisper SMOKE on a ring of 2: the encoder's and the decoder's QKV
+    rings and the decoder's ring attention on the card."""
+    def batch(cfg, g):
+        tokens, targets = _tokens(cfg, g)
+        frames = torch.randn(2, cfg.enc_frames, cfg.d_model, generator=g)
+        return ({"frames": frames, "tokens": tokens},), {
+            "frames": frames, "tokens": tokens, "targets": targets}
+
+    def expect(cfg):
+        return {"tile_matmul": 3 * (cfg.enc_layers + cfg.num_layers) * 6,
+                "flash_carry": 3 * cfg.num_layers * 2}
+    _family_vs_cpu(cuda, "whisper-tiny", 2, batch, expect)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_prefill_vs_streamed_decode(cuda):
+    """whisper SMOKE in fp32 on a ring of 2 on the card: encode, fill the
+    cross cache, stream the prompt through ring decode attention; the last
+    logits within 2e-3 of the prefill's."""
+    from dataclasses import replace
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = replace(get_smoke_config("whisper-tiny"), dtype="float32",
+                  param_dtype="float32", systolic_mode="qlr")
+    model = build_model(cfg, n_pe=2)
+    params = model.init(0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    frames = torch.randn(2, cfg.enc_frames, cfg.d_model, generator=g,
+                         device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g,
+                           device=cuda)
+    before = fk.FLASH_CARRY.launches
+    with torch.no_grad():
+        want = model.prefill(params, {"frames": frames, "tokens": tokens})
+        cache = model.fill_cross_cache(
+            params, model.init_cache(2, 16, cuda), model.encode(params,
+                                                                frames))
+        for t in range(tokens.shape[1]):
+            got, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
+    torch.cuda.synchronize()
+    assert fk.FLASH_CARRY.launches - before == \
+        cfg.num_layers * 2 * (1 + tokens.shape[1])
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)

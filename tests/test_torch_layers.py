@@ -144,7 +144,7 @@ def test_sinusoidal_positions_vs_reference(ref, num_pos, d):
     one ulp of exp's result in either package moves an angle by up to
     num_pos * 2^-23, and sin/cos by as much."""
     from repro.models.common import sinusoidal_positions as r_sin
-    got = common.sinusoidal_positions(num_pos, d)
+    got = common.sinusoidal_positions(num_pos, d, "cpu")
     assert got.shape == (num_pos, d) and got.dtype == torch.float32
     _close(got, r_sin(num_pos, d), max(1e-5, 2 * num_pos * 2.0 ** -23))
 

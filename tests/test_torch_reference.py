@@ -74,6 +74,20 @@ def reference_model(cfg, seed: int = 0):
     return model, params, jax.tree_util.tree_map(np.asarray, params)
 
 
+def perturbed(tree, seed: int = 0, scale: float = 0.1):
+    """``tree`` (numpy leaves) with noise added to every leaf that holds
+    one value throughout (biases at zero, norm scales at one), so that
+    parity checks see them count."""
+    rng = np.random.default_rng(seed)
+
+    def bump(a):
+        a = np.asarray(a)
+        if a.size and np.all(a == a.flat[0]):
+            return (a + scale * rng.standard_normal(a.shape)).astype(a.dtype)
+        return a
+    return jax.tree_util.tree_map(bump, tree)
+
+
 def test_loader_restores_batching_rules(ref):
     from jax.interpreters import batching
     assert not isinstance(batching.primitive_batchers, _AnyRule)
