@@ -7,7 +7,7 @@ depth on the ring, run mixtral-8x22b's MoE family and the 2-D grid
 schedules at full width, prefill, train and serve zamba2-1.2b, serve
 qwen3-14b and prefill olmo-1b and granite-34b at full width, and run
 internvl2-1b, deepseek-v2-lite-16b and whisper-tiny at full width and
-depth.
+depth, and run the autotuner's sweeps and tuned paths on the card.
 
     python3 chip_smoke.py
 
@@ -146,7 +146,34 @@ non-zero before the result lines are printed:
    in fp32 the ring against dense (2e-3, modes bit for bit), then
    ``fill_cross_cache``, 8 prompt tokens and 64 greedy decode steps of 4
    rows on the ring against the prefill of the whole sequence (2e-3); two
-   training steps. Each training run times its second step.
+   training steps. Each training run times its second step;
+14. the autotuner: (a) (run with phase 2's cases, while the profiler
+   still records every launch) ``tile_matmul`` at blocks 0, 64 and 128 (the
+   tuner's tile knob: bf16 forces the 128 x block output tile, fp32 the
+   block x block tile) against its twin at qwen3-0.6b's FFN AG hop, the
+   N = 64 QKV k/v sink, mixtral's expert gate/up and the fp32 ragged hop
+   with carry, each block's device time beside the bound and the
+   ``bmm``/``baddbmm`` time, and whether blocks 64 and 128 give block 0's
+   bits; (b) ``autotune.tune`` sweeps (warmup 1, 3 timed calls a plan)
+   into a temporary cache, each trial running what its plan is applied
+   to (``ring_ag_matmul``; ``gqa_forward`` and ``apply_moe`` under the
+   plan; a ``RingShardedBackend(plan=)`` decode step): the reference
+   cache's four shapes in fp32 (``matmul``, ``attention``, ``moe`` on 8
+   PEs, ``serve`` on 4), then qwen3-0.6b's FFN AG ring (x [4, 2048,
+   1024]), its attention layer, one mixtral-8x22b MoE layer (x [2, 8192,
+   6144], 8 PEs) and qwen3-0.6b's serving decode step at full depth (8
+   slots), all four at blocks 0/64/128: each plan's time and link bytes,
+   the winner and the default plan's time. The gated ops (attention,
+   MoE, serving) get link-mode plans only: a ``baseline`` model takes
+   the dense path, which launches no kernel; (c) every admitted plan
+   must come back timed with its sweep's kernels launched, each winner
+   within 5% of its default, and a second lookup must run no trial; (d)
+   qwen3-0.6b prefill (4 x 2048) with ``autotune=True`` against the
+   attention winner set by hand (logits bit for bit, launches and their
+   blocks equal, both kernels launched), and ``RingShardedBackend(plan=)``
+   with the serve winner against the hand-set backend (32 greedy tokens
+   of 8 prompts, token for token, both kernels launched); (e) the cache
+   as one ``[autotune-cache]`` JSON line naming the card.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -232,9 +259,12 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
     events around the calls would time the Python wrapper instead wherever
     a kernel is shorter than its launch path, so they are only the
     fallback: now and then a profiler session on the card records no
-    device activity for the calls, and after ``attempts`` such sessions
-    the calls are timed with CUDA events (logged). Whether a kernel
-    launched is checked by its counter, not here."""
+    device activity for the calls, or (late in a long run) only some of
+    their kernels. Every call launches the same kernels, so a session
+    counts only if each kernel it recorded ran a whole multiple of
+    ``iters`` times; after ``attempts`` sessions that do not, the calls
+    are timed with CUDA events (logged). Whether a kernel launched is
+    checked by its counter, not here."""
     import torch
     from torch.profiler import ProfilerActivity
     fn()                                         # warm
@@ -245,10 +275,10 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        busy = sum(ms for name, ms, _ in _kernel_rows(prof.key_averages())
-                   if only is None or only in name)
-        if busy > 0:
-            return busy / iters
+        rows = [r for r in _kernel_rows(prof.key_averages())
+                if only is None or only in r[0]]
+        if rows and all(n % iters == 0 for _, _, n in rows):
+            return sum(ms for _, ms, _ in rows) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -257,8 +287,9 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / iters
-    log(f"[timing] {attempts} profiler sessions recorded no device time "
-        f"for {only or 'a library call'}: {ms:.4f} ms from CUDA events")
+    log(f"[timing] {attempts} profiler sessions recorded no whole set of "
+        f"launches for {only or 'a library call'}: {ms:.4f} ms from CUDA "
+        f"events")
     return ms
 
 
@@ -715,45 +746,61 @@ def check_matmul(torch, mk, dev):
     }
     out = []
     for name, (a, b, c, odt) in cases.items():
-        got = mk.matmul_cuda(a, b, c, odt)
-        want = mk.matmul_plain(a, b, c, odt)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        # bf16 out: one bf16 rounding (2^-8 relative) of fp32 sums that
-        # differ in order; fp32 out: fp32 sums of K terms in another order
-        tol = (2 ** -7 if odt == bf else 1e-5) * max(1.0, scale)
-        if c is None:
-            lib_call = lambda a=a, b=b: torch.bmm(a, b)        # noqa: E731
-        else:
-            lib_call = lambda a=a, b=b, c=c: torch.baddbmm(c, a, b)  # noqa
-        flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
-        kind = "bf16" if a.dtype == bf else "fp32"
-        b_ms, b_by = bound(nbytes(a, b, c, got), flops, kind)
         bwd = None
         if name.startswith("train"):
             from repro_torch.kernels.systolic_matmul import ops as mm_ops
             bwd = backward_ms(torch, mm_ops._TileMatmul.apply,
                               (a, b, c, odt), (0, 1) + ((2,) if c is not None
                                                         else ()))
-        rec = {"case": name, "max_abs_err": err, "tol": tol,
-               "ok": err <= tol, "twin_backward_ms": bwd,
-               "ms": time_ms(lambda: mk.matmul_cuda(a, b, c, odt),
-                             only="tile_matmul_kernel"),
-               "plain_ms": time_ms(lambda: mk.matmul_plain(a, b, c, odt),
-                                   iters=3 if name.startswith("moe")
-                                   else 20),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": time_ms(lib_call),
-               "shape": {"a": list(a.shape), "b": list(b.shape),
-                         "carry": c is not None, "dtype": str(a.dtype)}}
-        log(f"[kernels] tile_matmul {name}: max_abs_err={err:.3e} (tol "
-            f"{tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"bmm {rec['library_ms']:.4f} ms, twin backward {bwd}"
-            + ratio_text(rec))
+        rec, _ = matmul_record(torch, mk, name, a, b, c, odt,
+                               plain_iters=3 if name.startswith("moe")
+                               else 20)
+        rec["twin_backward_ms"] = bwd
         out.append(rec)
     return out
+
+
+def matmul_record(torch, mk, name, a, b, c, odt, block: int = 0,
+                  plain_iters: int = 20, timed=None):
+    """One tile-matmul case on the card: the kernel at ``block`` against
+    its twin (bf16 out: one bf16 rounding, 2^-7 of the output's scale, of
+    fp32 sums that differ in order; fp32 out: 1e-5 of it, fp32 sums of K
+    terms in another order: ``tests/test_kernels.py``'s bounds), the
+    kernel's device time, its bound, and the twin's and ``bmm``/
+    ``baddbmm``'s times (taken from ``timed`` when given: they do not
+    depend on the block). Returns (record, the kernel's output)."""
+    bf = torch.bfloat16
+    got = mk.matmul_cuda(a, b, c, odt, block)
+    want = mk.matmul_plain(a, b, c, odt)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    tol = (2 ** -7 if odt == bf else 1e-5) * max(1.0, scale)
+    del want
+    if c is None:
+        lib_call = lambda: torch.bmm(a, b)                     # noqa: E731
+    else:
+        lib_call = lambda: torch.baddbmm(c, a, b)              # noqa: E731
+    if timed is None:
+        timed = {"plain_ms": time_ms(lambda: mk.matmul_plain(a, b, c, odt),
+                                     iters=plain_iters),
+                 "library_ms": time_ms(lib_call)}
+    flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    kind = "bf16" if a.dtype == bf else "fp32"
+    b_ms, b_by = bound(nbytes(a, b, c, got), flops, kind)
+    rec = {"case": name, "block": block, "max_abs_err": err, "tol": tol,
+           "ok": err <= tol,
+           "ms": time_ms(lambda: mk.matmul_cuda(a, b, c, odt, block),
+                         only="tile_matmul_kernel"),
+           "plain_ms": timed["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": timed["library_ms"],
+           "shape": {"a": list(a.shape), "b": list(b.shape),
+                     "carry": c is not None, "dtype": str(a.dtype)}}
+    log(f"[kernels] tile_matmul {name}: block {block} max_abs_err={err:.3e} "
+        f"(tol {tol:.3e}) kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"bmm {rec['library_ms']:.4f} ms" + ratio_text(rec))
+    return rec, got
 
 
 # conv2d: (P, rows per PE, W) and the types — the paper's 256x256 image on
@@ -3198,6 +3245,408 @@ def phase13(torch, kernels, dev):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the autotuner
+# ---------------------------------------------------------------------------
+
+# (a): tile_matmul at every block, [P, M, K] @ [P, K, N] (+ carry): qwen3's
+# FFN AG hop, internvl2's QKV k/v sink (N = 64), mixtral's expert gate/up,
+# and the fp32 ragged hop with an fp32 carry
+BLOCK_CASES = {"ffn_ag_hop": ((4, 512, 1024, 768), "bf16", False),
+               "qkv_kv_hop_n64": ((2, 4096, 896, 64), "bf16", False),
+               "moe_expert_gate_up": ((8, 5120, 6144, 16384), "bf16", False),
+               "fp32_carry_ragged": ((4, 500, 1024, 256), "fp32", True)}
+TUNE_WARMUP, TUNE_ITERS = 1, 3
+# the reference bench's slack on its own default (bench_autotune.SLACK)
+TUNE_SLACK = 0.05
+TUNED_SERVE_NEW = 32               # (d): greedy tokens of each prompt
+
+
+def block_knob(torch, mk, dev):
+    """(a) ``tile_matmul`` at blocks 0, 64 and 128 against its twin at
+    ``BLOCK_CASES``: device time per block beside the bound, the twin's
+    and ``bmm``/``baddbmm``'s time, and whether blocks 64 and 128 give
+    block 0's bits."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    recs = []
+    for name, ((p, m, k, n), kind, carry) in BLOCK_CASES.items():
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        a = torch.randn(p, m, k, generator=g, device=dev).to(dt)
+        b = torch.randn(p, k, n, generator=g, device=dev).to(dt)
+        c = torch.randn(p, m, n, generator=g, device=dev).to(dt) \
+            if carry else None
+        timed, base = None, None
+        for block in (0, 64, 128):
+            rec, got = matmul_record(
+                torch, mk, f"block{block}_{name}", a, b, c, dt, block,
+                plain_iters=3 if name.startswith("moe") else 20,
+                timed=timed)
+            timed = {k2: rec[k2] for k2 in ("plain_ms", "library_ms")}
+            if base is None:
+                base = got
+            rec["bit_identical_to_block0"] = bool(torch.equal(got, base))
+            recs.append(rec)
+        del a, b, c, base, got
+    log("[autotune] (a) " + json.dumps([
+        {k2: r[k2] for k2 in ("case", "ms", "bound_ms", "library_ms",
+                              "plain_ms", "max_abs_err", "ok",
+                              "bit_identical_to_block0")} for r in recs]))
+    return recs
+
+
+def tune_builders(torch, dev):
+    """(b) ``{name: (op, n_pe, dtype, key shape, blocks, kernels, make)}``:
+    the reference cache's four shapes in fp32
+    (``benchmarks/bench_autotune.py``'s shapes: ``model=8``, ``serve`` at
+    ``model=4``), then qwen3-0.6b's FFN AG ring, its attention layer and
+    its serving step at full width and depth on a ring of 4, and one
+    mixtral-8x22b MoE layer at full width on the ring of 8. Each trial
+    runs what the plan is applied to: ``ring_ag_matmul`` for ``matmul``,
+    ``gqa_forward`` and ``apply_moe`` under ``apply_plan(cfg, plan)`` for
+    the two gates, a decode step of ``RingShardedBackend(plan=)`` for
+    ``serve``. ``kernels`` names the kernels every plan's trial must
+    launch: a decode step's one-token QKV and FFN run dense, so only its
+    ring decode launches (``flash_carry``), and the block of a ``serve``
+    plan reaches the chunked prefill's rings, not the timed step. Inputs
+    and weights come from seeds; ``make()`` builds them."""
+    from repro_torch.autotune import Plan, apply_plan
+    from repro_torch.configs import ServeConfig, get_config, get_smoke_config
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.core import topology as topo_lib
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model, moe as moe_lib
+    from repro_torch.serve.sharded_cache import RingShardedBackend
+
+    def rnd(g, *shape, dt, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dt)
+
+    def matmul(n, b, s, d, fs, dt):
+        g = torch.Generator(device=dev).manual_seed(20)
+        x = rnd(g, b, s, d, dt=dt)
+        # the resident weight slices [n, d, f/n] of each sink, made once
+        ws = [rnd(g, d, f, dt=dt, scale=d ** -0.5)
+              .reshape(d, n, f // n).transpose(0, 1).contiguous()
+              for f in fs]
+
+        def build(plan: Plan):
+            topo = topo_lib.resolve_safe(plan.topology, "model", n)
+            return (lambda x: cm.ring_ag_matmul(
+                cm._seq_shards(x, n), ws, topo, plan.mode, plan.block),
+                (x,))
+        return build
+
+    def attention(n, b, s, cfg):
+        g = torch.Generator(device=dev).manual_seed(21)
+        p = attn.init_gqa(g, cfg)
+        x = rnd(g, b, s, cfg.d_model, dt=p["wq"].dtype)
+
+        def build(plan: Plan):
+            c = apply_plan(cfg, plan)
+            return (lambda x: attn.gqa_forward(p, x, c, n_pe=n)), (x,)
+        return build
+
+    def moe(n, b, s, cfg):
+        g = torch.Generator(device=dev).manual_seed(22)
+        p = moe_lib.init_moe(g, cfg)
+        x = rnd(g, b, s, cfg.d_model, dt=p["w_gate"].dtype)
+
+        def build(plan: Plan):
+            c = apply_plan(cfg, plan)
+            return (lambda x: moe_lib.apply_moe(p, x, c, n_pe=n)[0]), (x,)
+        return build
+
+    def serve(n, cfg, max_batch, max_seq):
+        params = build_model(cfg).init(seed=0, device=dev)
+        scfg = ServeConfig(max_batch=max_batch, max_seq_len=max_seq,
+                           temperature=0.0)
+        tokens = np.ones((max_batch, 1), np.int32)
+        active = np.ones(max_batch, bool)
+
+        def build(plan: Plan):
+            be = RingShardedBackend(cfg, scfg, params, n, plan=plan,
+                                    device=dev)
+            return (lambda: be.step(tokens, active)), ()
+        return build
+
+    f32, bf = torch.float32, torch.bfloat16
+    blocks = (0, 64, 128)
+    both = ("flash_carry", "tile_matmul")
+    q3 = get_config("qwen3-0.6b")
+    mix = get_config("mixtral-8x22b")
+    # the reference bench's attention layer: 4 heads over 2 KV heads of
+    # 16 (SMOKE qwen3-0.6b), whose QKV ring cannot split over 8 PEs, so
+    # no block reaches a kernel there
+    small_attn = replace(get_smoke_config("qwen3-0.6b"), dtype="float32",
+                         param_dtype="float32")
+    small_moe = replace(
+        get_smoke_config("qwen3-0.6b"), name="autotune-moe", family="moe",
+        d_model=32, d_ff=64, d_ff_expert=64, num_experts=8,
+        experts_per_token=2, capacity_factor=2.0, dtype="float32",
+        param_dtype="float32")
+    return {
+        "ref_matmul": ("matmul", 8, "float32", (2, 128, 64), blocks,
+                       ("tile_matmul",),
+                       lambda: matmul(8, 2, 128, 64, [64], f32)),
+        "ref_attention": ("attention", 8, "float32", (2, 128, 64), (0,),
+                          ("flash_carry",),
+                          lambda: attention(8, 2, 128, small_attn)),
+        "ref_moe": ("moe", 8, "float32", (2, 64, 32), blocks,
+                    ("tile_matmul",), lambda: moe(8, 2, 64, small_moe)),
+        "ref_serve": ("serve", 4, "float32", (8, 64, 64), blocks,
+                      ("flash_carry",),
+                      lambda: serve(4, small_attn, 8, 64)),
+        "qwen3_matmul": ("matmul", N_PE, "bfloat16", (4, 2048, q3.d_model),
+                         blocks, ("tile_matmul",),
+                         lambda: matmul(N_PE, 4, 2048, q3.d_model,
+                                        [q3.d_ff, q3.d_ff], bf)),
+        "qwen3_attention": ("attention", N_PE, "bfloat16",
+                            (4, 2048, q3.d_model), blocks, both,
+                            lambda: attention(N_PE, 4, 2048, q3)),
+        "mixtral_moe": ("moe", 8, "bfloat16", (MOE_BATCH, MOE_SEQ,
+                                               mix.d_model), blocks,
+                        ("tile_matmul",),
+                        lambda: moe(8, MOE_BATCH, MOE_SEQ, mix)),
+        "qwen3_serve": ("serve", N_PE, "bfloat16", (BATCH, MAX_SEQ,
+                                                    q3.d_model), blocks,
+                        ("flash_carry",),
+                        lambda: serve(N_PE, q3, BATCH, MAX_SEQ)),
+    }
+
+
+def tune_sweeps(torch, kernels, dev, cache, card):
+    """(b) every sweep of ``tune_builders`` through ``tune`` into
+    ``cache`` (warmup 1, 3 timed calls a plan, measured on ``card``).
+    Rules: every plan that ``candidates`` admits comes back timed (an
+    ``error`` fails the phase) and its trial launched the sweep's
+    kernels, the winner is within TUNE_SLACK of the op's default plan
+    (``space.default_plan``: ``DEFAULT_PLAN`` for ``matmul``, the ring
+    backend's ``qlr/ring`` for the gated ops, which get no ``baseline``
+    plan), and a second ``best_plan`` of the key runs no trial."""
+    from repro_torch.autotune import best_plan, candidates, measure
+    from repro_torch.autotune import tune
+    from repro_torch.autotune.space import default_plan
+    out = {}
+    for name, (op, n, dtype, shape, blocks, expect, make) in \
+            tune_builders(torch, dev).items():
+        t0 = time.perf_counter()
+        build = make()
+        launched = {}
+
+        def counted(plan, build=build, launched=launched):
+            fn, args = build(plan)
+
+            def run(*a):
+                before = {k.name: k.launches for k in kernels}
+                y = fn(*a)
+                launched[plan.label()] = sorted(
+                    k.name for k in kernels if k.launches > before[k.name])
+                return y
+            return run, args
+
+        plans = candidates(op, n, blocks=blocks)
+        default = default_plan(op)
+        assert default in plans, (name, default)
+        measure.reset_trials()
+        winner, results = tune(op, shape, dtype, n, counted, cache=cache,
+                               plans=plans, warmup=TUNE_WARMUP,
+                               iters=TUNE_ITERS, device=card)
+        trials = measure.trial_count()
+        bad = {k: r["error"] for k, r in results.items() if "error" in r}
+        assert not bad, (name, bad)
+        assert trials == len(plans), (name, trials, len(plans))
+        idle = {k: v for k, v in launched.items()
+                if not set(expect) <= set(v)}
+        assert len(launched) == len(plans) and not idle, (name, expect, idle)
+        win_us = results[winner.label()]["us"]
+        default_us = results[default.label()]["us"]
+        assert win_us <= default_us * (1 + TUNE_SLACK), \
+            (name, winner.label(), win_us, default_us)
+        measure.reset_trials()
+        assert best_plan(op, shape, dtype, n, cache=cache) == winner
+        assert measure.trial_count() == 0, (name, "cache hit re-measured")
+        del build, counted
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = {"op": op, "n_pe": n, "dtype": dtype,
+                     "shape": list(shape), "n_plans": len(plans),
+                     "kernels_every_plan": list(expect),
+                     "winner": winner.label(), "winner_us": win_us,
+                     "default": default.label(), "default_us": default_us,
+                     "speedup": default_us / win_us,
+                     "seconds": time.perf_counter() - t0,
+                     "plans": {k: {"us": r["us"], "bytes": r["bytes"]}
+                               for k, r in results.items()}}
+        log(f"[autotune] (b) {name}: {json.dumps(out[name])}")
+    return out
+
+
+def tuned_prefill(torch, kernels, mk, dev, cfg, params, tokens, plan):
+    """qwen3-0.6b prefill with ``autotune=True`` and a cache that holds
+    ``plan`` under the ``attention`` key of ``tokens``, against the same
+    config with the plan's fields set by hand. Both configs carry the
+    plan's mode and topology, so the FFN ring (which no gate reaches)
+    runs alike; the tuned one starts at another block, which the gate
+    must overwrite. Logits bit for bit, launches equal, and every launch
+    at the same block."""
+    from repro_torch.autotune import TuneCache, api, apply_plan
+    from repro_torch.models import build_model
+    cache = TuneCache()
+    cache.put("attention", (*tokens.shape, cfg.d_model), cfg.dtype,
+              api.mesh_key(N_PE), plan)
+    start_block = 64 if plan.block != 64 else 128
+    tuned = replace(cfg, systolic_mode=plan.mode,
+                    systolic_topology=plan.topology,
+                    kernel_block=start_block, autotune=True)
+    hand = apply_plan(replace(tuned, autotune=False), plan)
+    blocks_seen: dict = {}
+    real = mk.matmul_cuda
+
+    def recording(a, b, c=None, out_dtype=None, block=0):
+        blocks_seen[block] = blocks_seen.get(block, 0) + 1
+        return real(a, b, c, out_dtype, block)
+
+    saved = api._CACHE
+    api._CACHE = cache
+    mk.matmul_cuda = recording
+    try:
+        runs = {}
+        for name, c in (("tuned", tuned), ("hand", hand)):
+            model = build_model(c, n_pe=N_PE)
+            blocks_seen.clear()
+            for k in kernels:
+                k.launches = 0
+            with torch.inference_mode():
+                logits = model.prefill(params, tokens)
+            torch.cuda.synchronize()
+            runs[name] = (logits, {k.name: k.launches for k in kernels},
+                          dict(blocks_seen))
+    finally:
+        mk.matmul_cuda = real
+        api._CACHE = saved
+    (lt, nt, bt), (lh, nh, bh) = runs["tuned"], runs["hand"]
+    assert bool(torch.isfinite(lt).all()), "non-finite tuned logits"
+    assert torch.equal(lt, lh), (plan.label(), "tuned prefill differs")
+    assert nt == nh and bt == bh, (plan.label(), nt, nh, bt, bh)
+    assert start_block not in bt, (plan.label(), bt)
+    assert all(v > 0 for v in nt.values()), (plan.label(), nt)
+    out = {"plan": plan.label(), "start_block": start_block,
+           "launches": nt, "launches_by_block": bt,
+           "logits_bit_identical": True}
+    log(f"[autotune] (d) prefill: {json.dumps(out)}")
+    return out
+
+
+def tuned_serve(torch, kernels, dev, cfg, params, plan):
+    """``RingShardedBackend(plan=plan)`` against a backend with the plan's
+    mode, topology and block set by hand: TUNED_SERVE_NEW greedy tokens
+    of 8 prompts (block prefill on), token for token, launches equal."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharded_cache import RingShardedBackend
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=MAX_SEQ,
+                       prefill_chunk=CHUNK, temperature=0.0)
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(64, 257)))
+               .astype(np.int32) for _ in range(BATCH)]
+    served = {}
+    for name in ("plan", "hand"):
+        if name == "plan":
+            backend = RingShardedBackend(cfg, scfg, params, N_PE,
+                                         plan=plan, device=dev)
+        else:
+            backend = RingShardedBackend(
+                replace(cfg, systolic_topology=plan.topology,
+                        kernel_block=plan.block), scfg, params, N_PE,
+                plan.mode, device=dev)
+        eng = ServeEngine(cfg, scfg, params, backend=backend, device=dev)
+        reqs = [eng.sched.submit(p, TUNED_SERVE_NEW) for p in prompts]
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        eng.run(max_ticks=10 * TUNED_SERVE_NEW)
+        torch.cuda.synchronize()
+        assert all(r.status == "done" and
+                   len(r.out_tokens) == TUNED_SERVE_NEW for r in reqs), name
+        served[name] = {"backend": backend.name,
+                        "tokens": [list(map(int, r.out_tokens))
+                                   for r in reqs],
+                        "seconds": time.perf_counter() - t0,
+                        "launches": {k.name: k.launches for k in kernels}}
+        del eng, backend
+    assert served["plan"]["backend"] == f"ring-{plan.mode}+tuned"
+    assert served["plan"]["tokens"] == served["hand"]["tokens"], \
+        (plan.label(), "the tuned backend served other tokens")
+    assert served["plan"]["launches"] == served["hand"]["launches"]
+    assert all(v > 0 for v in served["plan"]["launches"].values()), \
+        (plan.label(), served["plan"]["launches"])
+    out = {"plan": plan.label(),
+           **{f"{k}_{f}": v[f] for k, v in served.items()
+              for f in ("backend", "seconds", "launches")},
+           "tokens_equal": True, "tokens": TUNED_SERVE_NEW * BATCH}
+    log(f"[autotune] (d) serving: {json.dumps(out)}")
+    return out
+
+
+def tuned_model_path(torch, kernels, mk, dev, cache, sweeps):
+    """(d) qwen3-0.6b at full width and depth, ring of 4, bf16: the
+    prefill through the attention gate with (b)'s ``attention`` winner
+    (4 x 2048 tokens: an exact hit) and ``RingShardedBackend(plan=)``
+    with its ``serve`` winner, each against the hand-set config, and each
+    launching both kernels."""
+    from repro_torch.autotune import api
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-0.6b")
+    params = build_model(cfg).init(seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (4, 2048)), device=dev)
+    winners = {}
+    for op, sweep, key in (
+            ("attention", sweeps["qwen3_attention"],
+             (4, 2048, cfg.d_model)),
+            ("serve", sweeps["qwen3_serve"], (BATCH, MAX_SEQ, cfg.d_model))):
+        winner = cache.get_exact(op, key, "bfloat16", api.mesh_key(N_PE))
+        assert winner is not None and winner.label() == sweep["winner"]
+        winners[op] = winner
+    out = {"prefill": tuned_prefill(torch, kernels, mk, dev, cfg, params,
+                                    tokens, winners["attention"]),
+           "serve": tuned_serve(torch, kernels, dev, cfg, params,
+                                winners["serve"])}
+    del params
+    return out
+
+
+def phase14(torch, kernels, mk, dev, card, recs):
+    """(b) the sweeps into a temporary cache, (c) their rules (in
+    ``tune_sweeps``), (d) the tuned model path, (e) the cache as one JSON
+    line, with the card's name and power limit; ``recs`` are (a)'s
+    records (``block_knob``, run beside phase 2). Returns (results,
+    launches by path)."""
+    import tempfile
+    from repro_torch.autotune import TuneCache
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = TuneCache(str(Path(tmp) / "AUTOTUNE_CACHE_H100.json"))
+        for k in kernels:
+            k.launches = 0
+        sweeps = tune_sweeps(torch, kernels, dev, cache, card)
+        launches = {"autotune_sweeps": {k.name: k.launches
+                                        for k in kernels}}
+        tuned = tuned_model_path(torch, kernels, mk, dev, cache, sweeps)
+        launches["autotune_tuned_prefill"] = tuned["prefill"]["launches"]
+        launches["autotune_tuned_serve"] = tuned["serve"]["plan_launches"]
+        log("[autotune-cache] " + json.dumps(cache.payload(),
+                                             sort_keys=True))
+    out = {"block_knob": [{k: r[k] for k in ("case", "ms", "bound_ms",
+                                             "library_ms",
+                                             "bit_identical_to_block0")}
+                          for r in recs],
+           "sweeps": sweeps, "tuned": tuned,
+           "seconds": time.perf_counter() - t0}
+    log(f"[autotune] phase 14 {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3232,10 +3681,13 @@ def main() -> int:
 
     flash = check_flash(torch, fk, dev)
     mm = check_matmul(torch, mk, dev)
+    # phase 14 (a) runs here, beside phase 2's cases: late in a long run
+    # the profiler loses launches (time_ms then falls back to events)
+    blocks = block_knob(torch, mk, dev)
     conv = check_conv(torch, ck, dev)
     ffts = check_fft(torch, ffk, fft, dev)
     ssds = check_ssd(torch, sk, dev)
-    bad = [r["case"] for r in flash + mm + conv + ffts + ssds
+    bad = [r["case"] for r in flash + mm + blocks + conv + ffts + ssds
            if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
@@ -3305,6 +3757,9 @@ def main() -> int:
     p13, p13_launches = phase13(torch, main_path, dev)
     log(f"[phase13] phase 13 {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    p14, p14_launches = phase14(torch, main_path, mk, dev, card, blocks)
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
@@ -3325,7 +3780,9 @@ def main() -> int:
                       for name, got in p12_launches.items()
                       if name != "zamba_grad"},
                    **{name: got.get(kern.name, 0)
-                      for name, got in p13_launches.items()}}
+                      for name, got in p13_launches.items()},
+                   **{name: got.get(kern.name, 0)
+                      for name, got in p14_launches.items()}}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -3391,6 +3848,9 @@ def main() -> int:
             dec["launches"]["flash_carry"] // (dec["prompt"]
                                                + dec["new_tokens"]) \
             if kern.name == "flash_carry" else 0
+        # phase 14: the tuned qwen3-0.6b prefill call
+        per_call["autotune_tuned_prefill"] = \
+            p14["tuned"]["prefill"]["launches"].get(kern.name, 0)
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path.values()),
@@ -3407,8 +3867,8 @@ def main() -> int:
               "src/repro/kernels/flash_attention/kernel.py:140", flash,
               "decode_hop"),
         entry(mk.TILE_MATMUL, "src/repro_torch/csrc/tile_matmul.cu",
-              "src/repro/kernels/systolic_matmul/kernel.py:104", mm,
-              "ffn_ag_hop"),
+              "src/repro/kernels/systolic_matmul/kernel.py:104",
+              mm + blocks, "ffn_ag_hop"),
         entry(sk.SSD_CHUNKS, "src/repro_torch/csrc/ssd_chunks.cu",
               "src/repro/kernels/ssd/kernel.py:74", ssds, "prefill_bf16"),
         entry(ck.CONV2D_3X3, "src/repro_torch/csrc/conv2d_3x3.cu",
@@ -3420,7 +3880,8 @@ def main() -> int:
         "train_parity": tparity, "serve_launcher": launcher,
         "moe_prefill": mprefill, "moe_parity": mparity, "moe_train": mtrain,
         "moe_serve": moeserve, "grid_prefill": gprefill,
-        "cannon_grid": cgrid, "phase12": p12, "phase13": p13}
+        "cannon_grid": cgrid, "phase12": p12, "phase13": p13,
+        "phase14": p14}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -97,6 +97,13 @@ class ModelConfig:
     # Schedule over the ring: "ring" | "snake_fold" | "torus2d" |
     # "cannon_grid", optionally ":RxC".
     systolic_topology: str = "ring"
+    # Tile of the fused consume (0 -> kernel defaults; 64 | 128 force the
+    # tile GEMM's output tile, see kernels/systolic_matmul/ops.py).
+    kernel_block: int = 0
+    # Consult the persistent tuning cache (repro_torch.autotune) for a
+    # measured (mode, topology, block) plan per op/shape. Cache-only in the
+    # models; online tuning runs through ``autotune.tune``.
+    autotune: bool = False
 
     # activation recomputation of each block in the training backward
     remat: str = "full"            # none | full | selective

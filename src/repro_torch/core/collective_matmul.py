@@ -74,7 +74,7 @@ def _chunks(x, n: int):
 
 
 def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo,
-                   mode: str = "qlr"):
+                   mode: str = "qlr", block: int = 0):
     """All-gather(x) @ w_i for each w_i, streamed around a ring.
 
     x_local: [n, ..., s_local, d] — each PE's shard of the streamed operand.
@@ -82,7 +82,8 @@ def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo,
     Returns: list of [n, ..., n*s_local, f_local] full outputs per PE.
 
     At hop t PE d holds the shard of origin ``source_table[d, t]`` and
-    writes its partial products at that offset.
+    writes its partial products at that offset. ``block`` is every
+    consume's tile (``tile_matmul``).
     """
     n = topo.size
     s_local = x_local.shape[-2]
@@ -91,7 +92,7 @@ def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo,
         xs = torch.cat(x_local.unbind(0), dim=-2)          # all-gather
         xs = xs.unsqueeze(0).expand(n, *xs.shape)
         linkstats.record_multicast(x_local, fan_in=n)
-        return [tile_matmul(xs, w) for w in ws]
+        return [tile_matmul(xs, w, block=block) for w in ws]
 
     src_table = _source_table(topo, x_local.device)
     pe = torch.arange(n, device=x_local.device)
@@ -106,7 +107,7 @@ def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo,
     def consume(state, buf, t):
         src = src_table[:, t]
         for o, w in zip(state, ws):
-            part = tile_matmul(buf, w)
+            part = tile_matmul(buf, w, block=block)
             # o is updated in place: each PE writes its chunk at its origin
             o.view(n, -1, n, s_local, o.shape[-1])[pe, :, src] = \
                 part.reshape(n, -1, s_local, w.shape[-1]).to(o.dtype)
@@ -116,7 +117,7 @@ def ring_ag_matmul(x_local, ws: Sequence[torch.Tensor], topo,
     return state
 
 
-def ring_matmul_rs(x, w, topo, mode: str = "qlr"):
+def ring_matmul_rs(x, w, topo, mode: str = "qlr", block: int = 0):
     """(x @ w) reduce-scattered over the sequence dim, as a ring of
     travelling accumulators.
 
@@ -126,7 +127,7 @@ def ring_matmul_rs(x, w, topo, mode: str = "qlr"):
     (``dest_table[d, t]``). Each partial folds into the travelling
     accumulator inside one tile-matmul call (the kernel's carry-in). The
     accumulator starts in the activation type and is rounded to it after
-    every hop, as in the reference.
+    every hop, as in the reference. ``block`` is every consume's tile.
     """
     n = topo.size
     s = x.shape[-2]
@@ -136,7 +137,7 @@ def ring_matmul_rs(x, w, topo, mode: str = "qlr"):
     s_local = s // n
     lead = x.shape[1:-2]
     if mode == "baseline":
-        y = tile_matmul(x, w)
+        y = tile_matmul(x, w, block=block)
         y_s = _chunks(y, n).sum(dim=0)                      # reduce ...
         y_s = y_s.permute(1, 0, 2, 3).reshape(n, *lead, s_local,
                                              w.shape[-1])   # ... scatter
@@ -151,7 +152,7 @@ def ring_matmul_rs(x, w, topo, mode: str = "qlr"):
     def part(t, acc=None):
         xc = xc_all[pe, :, dst_table[:, t]]                  # [n, L, s_l, f]
         xc = xc.reshape(n, *lead, s_local, x.shape[-1])
-        return tile_matmul(xc, w, acc)
+        return tile_matmul(xc, w, acc, block=block)
 
     acc = part(0)
     for t in range(1, n):
@@ -223,7 +224,8 @@ def _cannon_sources(n: int, preskewed: bool, device):
 
 def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
                   rows: int, cols: int, mode: str = "qlr",
-                  preskewed: bool = False, skew: str = "masked"):
+                  preskewed: bool = False, skew: str = "masked",
+                  block: int = 0):
     """2-D output-stationary systolic matmul (Cannon) on an RxC grid folded
     from the PE axis. PE r*cols + c ends with C tile sum_k A[r,k] B[k,c].
 
@@ -241,7 +243,8 @@ def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
     n-1, B's with n): 2 hops in place of 2(n-1), the same values.
     ``baseline`` is the shared-memory form: no hops; at step t each PE
     gathers the tiles it needs, so it runs the same n launches on the same
-    operands, and every mode gives identical values.
+    operands, and every mode gives identical values. ``block`` is every
+    step's tile (``tile_matmul``).
     """
     if rows != cols:
         raise ValueError("Cannon requires a square grid")
@@ -257,7 +260,8 @@ def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
         a_src, b_src = _cannon_sources(n, preskewed, a_local.device)
         for t in range(n):
             acc = tile_matmul(a_local.index_select(0, a_src[t]),
-                              b_local.index_select(0, b_src[t]), acc)
+                              b_local.index_select(0, b_src[t]), acc,
+                              block=block)
         return acc
     if not preskewed and skew == "grid":
         a_local = queues.hop(cannon_skew(row_topo.axis, rows, cols,
@@ -276,7 +280,7 @@ def cannon_matmul(a_local, b_local, row_topo: Topology, col_topo: Topology,
         if mode == "qlr" and not last:   # next operands in flight first
             nxt = (queues.hop(row_topo, a_local, mode, t=t),
                    queues.hop(col_topo, b_local, mode, t=t))
-        acc = tile_matmul(a_local, b_local, acc)
+        acc = tile_matmul(a_local, b_local, acc, block=block)
         if not last:
             if mode != "qlr":
                 nxt = (queues.hop(row_topo, a_local, mode, t=t),
@@ -340,7 +344,7 @@ def _seq_unshard(y):
 
 
 def systolic_qkv(x, wq, wk, wv, n_pe: int, mode: str = "qlr", *,
-                 topo=None):
+                 topo=None, block: int = 0):
     """QKV projections as ONE systolic ring: the x stream feeds three
     weight sinks (the paper's data reuse).
 
@@ -356,7 +360,7 @@ def systolic_qkv(x, wq, wk, wv, n_pe: int, mode: str = "qlr", *,
             .reshape(n_pe, d, (h // n_pe) * hd)
 
     ws = [head_slices(w) for w in (wq, wk, wv)]
-    outs = ring_ag_matmul(x_l, ws, topo, mode)
+    outs = ring_ag_matmul(x_l, ws, topo, mode, block)
 
     def unflat(y, w):                       # [n, B, S, H_l*hd] -> global
         n, b, s, _ = y.shape
@@ -368,7 +372,7 @@ def systolic_qkv(x, wq, wk, wv, n_pe: int, mode: str = "qlr", *,
 
 
 def systolic_out_proj(attn_out, wo, n_pe: int, mode: str = "qlr", *,
-                      topo=None):
+                      topo=None, block: int = 0):
     """Attention output projection with a reduce-scatter ring: partial sums
     over the head shards travel to their sequence-shard owners.
 
@@ -378,12 +382,12 @@ def systolic_out_proj(attn_out, wo, n_pe: int, mode: str = "qlr", *,
     b, s, h, hd = attn_out.shape
     o_l = attn_out.reshape(b, s, n_pe, (h // n_pe) * hd).permute(2, 0, 1, 3)
     w_l = wo.reshape(n_pe, (h // n_pe) * hd, wo.shape[2])
-    y = ring_matmul_rs(o_l, w_l, topo, mode)
+    y = ring_matmul_rs(o_l, w_l, topo, mode, block)
     return _seq_unshard(y)
 
 
 def systolic_ffn(x, w_gate, w_up, w_down, n_pe: int, mode: str = "qlr", *,
-                 topo=None):
+                 topo=None, block: int = 0):
     """SwiGLU FFN with systolic sequence-parallel rings:
 
       x (seq-sharded) --AG-ring--> [gate|up] (one stream, two weight sinks)
@@ -398,7 +402,7 @@ def systolic_ffn(x, w_gate, w_up, w_down, n_pe: int, mode: str = "qlr", *,
     wg = w_gate.reshape(d, n_pe, f // n_pe).transpose(0, 1)
     wu = w_up.reshape(d, n_pe, f // n_pe).transpose(0, 1)
     wd = w_down.reshape(n_pe, f // n_pe, d)
-    gate, up = ring_ag_matmul(x_l, [wg, wu], topo, mode)
+    gate, up = ring_ag_matmul(x_l, [wg, wu], topo, mode, block)
     h = F.silu(gate) * up                                  # [n, B, S, f_l]
-    y = ring_matmul_rs(h, wd, topo, mode)
+    y = ring_matmul_rs(h, wd, topo, mode, block)
     return _seq_unshard(y)

@@ -45,17 +45,17 @@ from repro_torch.obs import linkstats
 MODES = ("baseline",) + queues.MODES
 
 
-def _expert_ffn(xbuf, wg, wu, wd):
+def _expert_ffn(xbuf, wg, wu, wd, block: int = 0):
     """The expert SwiGLU, each projection one tile-matmul launch over all
-    experts. xbuf: [E, M, D]; wg/wu: [E, D, F]; wd: [E, F, D]. Returns
-    [E, M, D] in the promoted type."""
-    gate = tile_matmul(xbuf, wg)
-    up = tile_matmul(xbuf, wu)
-    return tile_matmul(F.silu(gate) * up, wd)
+    experts (``block``: the launches' tile). xbuf: [E, M, D]; wg/wu:
+    [E, D, F]; wd: [E, F, D]. Returns [E, M, D] in the promoted type."""
+    gate = tile_matmul(xbuf, wg, block=block)
+    up = tile_matmul(xbuf, wu, block=block)
+    return tile_matmul(F.silu(gate) * up, wd, block=block)
 
 
 def ring_moe(x_blk, idx_blk, pos_blk, w_blk, wg, wu, wd, topo, cap: int,
-             mode: str = "qlr"):
+             mode: str = "qlr", block: int = 0):
     """Expert-ring MoE, every PE at once.
 
     x_blk:   [n, B, s_l, D] — each PE's token block (streamed).
@@ -67,7 +67,7 @@ def ring_moe(x_blk, idx_blk, pos_blk, w_blk, wg, wu, wd, topo, cap: int,
              resident shard is experts ``[d*e_l, (d+1)*e_l)``.
 
     Returns [n, B, s_l, D] fp32: each PE's combined output for its own
-    tokens.
+    tokens. ``block`` is the expert FFN's tile (``tile_matmul``).
     """
     queues.check_mode(mode, baseline=True)
     n, b, s_l, d = x_blk.shape
@@ -115,7 +115,8 @@ def ring_moe(x_blk, idx_blk, pos_blk, w_blk, wg, wu, wd, topo, cap: int,
     xbuf0 = x_blk.new_zeros(rows + 1, d)
 
     def ffn(xbuf):
-        return _expert_ffn(xbuf[:rows].view(e, b * cap, d), wg, wu, wd) \
+        return _expert_ffn(xbuf[:rows].view(e, b * cap, d), wg, wu, wd,
+                           block) \
             .reshape(rows, d)
 
     if mode == "baseline":
@@ -171,14 +172,16 @@ def ring_moe_applicable(cfg, x, n_pe: int) -> bool:
 
 
 def systolic_ring_moe(x, idx, pos, weights, wg, wu, wd, cap: int,
-                      n_pe: int, mode: str = "qlr", *, topo=None):
+                      n_pe: int, mode: str = "qlr", *, topo=None,
+                      block: int = 0):
     """Expert-ring MoE over ``n_pe`` emulated PEs: experts sharded
     (resident), tokens streamed.
 
     x: [B,S,D]; idx/pos: [B,S,K] int32; weights: [B,S,K] (routing already
     resolved, see ``models.moe.apply_moe``); wg/wu: [E,D,F], wd: [E,F,D].
     Returns y [B,S,D] fp32. ``topo`` re-points the expert ring (a
-    snake_fold placement, a 2-D grid)."""
+    snake_fold placement, a 2-D grid); ``block`` is the expert FFN's
+    tile."""
     topo = topo or ring("model", n_pe)
     if topo.size != n_pe:
         raise ValueError(f"topology of {topo.size} PEs for a ring of {n_pe}")
@@ -188,6 +191,6 @@ def systolic_ring_moe(x, idx, pos, weights, wg, wu, wd, cap: int,
         return t.reshape(bsz, n_pe, s // n_pe, *t.shape[2:]).transpose(0, 1)
 
     y = ring_moe(shards(x), shards(idx), shards(pos), shards(weights), wg,
-                 wu, wd, topo, cap, mode)
+                 wu, wd, topo, cap, mode, block)
     n, bsz, s_l = y.shape[:3]
     return y.transpose(0, 1).reshape(bsz, n * s_l, y.shape[-1])

@@ -19,7 +19,8 @@
 //
 // * bf16 inputs: wgmma (sm_90a). Two warpgroups own 64 rows each of a
 //   128 x BN output tile; BN (64, 96 or 128) is chosen per launch from
-//   (P, M, N) so the grid fills about one wave of the 132 SMs. K-tiles of
+//   (P, M, N) so the grid fills about one wave of the 132 SMs, unless the
+//   caller's block forces 64 or 128 (the autotuner's knob). K-tiles of
 //   64 go through a ring of 5 shared-memory stages, three ahead of the
 //   math, in the 128-byte swizzled layout the wgmma descriptors read (A
 //   K-major, B N-major); one wgmma group stays in flight across each
@@ -32,7 +33,8 @@
 //   and the operands 16-byte aligned (the wrapper pads or copies others).
 // * fp32 inputs: exact fp32 FMAs (the twin's arithmetic; no TF32), a SIMT
 //   SGEMM with 128 x 128 block tiles, an 8 x 8 register tile per thread
-//   (64 x 64 and 4 x 4 when 128 x 128 tiles would not fill one wave),
+//   (64 x 64 and 4 x 4 when 128 x 128 tiles would not fill one wave, or
+//   as the caller's block forces),
 //   float4 shared-memory reads and double-buffered cp.async loads (A is
 //   transposed by 4-byte copies, B arrives as 16-byte copies). N must be a
 //   multiple of 4.
@@ -421,6 +423,7 @@ struct Args {
   const void *a, *b, *c;
   void* out;
   int P, M, N, K;
+  int block;  // 0: the launcher's own tile; 64 | 128: the caller's
 };
 
 // the widest output tile whose grid takes the fewest 132-SM waves, weighed
@@ -460,9 +463,10 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t s) {
   return cudaSuccess;
 }
 
+// a block of 64 or 128 forces BN (WG_BM and WG_BK stay 128 and 64)
 template <typename TC, typename TOut, bool HAS_C>
 cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
-  switch (choose_bn(a.P, a.M, a.N)) {
+  switch (a.block ? a.block : choose_bn(a.P, a.M, a.N)) {
     case 64: return launch_wgmma<64, TC, TOut, HAS_C>(a, s);
     case 96: return launch_wgmma<96, TC, TOut, HAS_C>(a, s);
     default: return launch_wgmma<128, TC, TOut, HAS_C>(a, s);
@@ -481,11 +485,12 @@ cudaError_t launch_sgemm(const Args& a, cudaStream_t s) {
 
 // 128 x 128 tiles when they fill a wave of the card, else 64 x 64 (the fp32
 // ring hops of a short prompt: [4, 500, 1024] @ [4, 1024, 256] gives 32
-// blocks of 128 x 128)
+// blocks of 128 x 128); a block of 64 or 128 forces the square tile
 template <typename TC, typename TOut, bool HAS_C>
 cudaError_t launch_fp32(const Args& a, cudaStream_t s) {
   const long long big = (long long)a.P * ((a.M + 127) / 128) * ((a.N + 127) / 128);
-  return big >= 132 ? launch_sgemm<8, TC, TOut, HAS_C>(a, s)
+  const bool wide = a.block ? a.block == 128 : big >= 132;
+  return wide ? launch_sgemm<8, TC, TOut, HAS_C>(a, s)
                     : launch_sgemm<4, TC, TOut, HAS_C>(a, s);
 }
 
@@ -508,17 +513,20 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // The wgmma body needs K and N multiples of 8, the SGEMM body N a multiple
 // of 4; both need 16-byte aligned operands. The Python wrapper pads or
-// copies whatever does not meet this; here it is an error.
+// copies whatever does not meet this; here it is an error. ``block`` is 0
+// (the launcher picks the tile), 64 or 128.
 extern "C" int tile_matmul(const void* a, const void* b, const void* c, void* out,
                            int P, int M, int N, int K, int in_dtype, int c_dtype,
-                           int out_dtype, void* stream) {
+                           int out_dtype, int block, void* stream) {
   if (P <= 0 || M <= 0 || N <= 0 || K < 0 || (in_dtype != 0 && in_dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (block != 0 && block != 64 && block != 128)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((in_dtype == 1 && (K % 8 || N % 8)) || N % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(a) || !aligned16(b) || !aligned16(out) || (c_dtype >= 0 && !aligned16(c)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const Args args{a, b, c, out, P, M, N, K};
+  const Args args{a, b, c, out, P, M, N, K, block};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (out_dtype) {

@@ -21,13 +21,24 @@ from repro_torch.kernels._build import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 TILE_MATMUL = Kernel("tile_matmul", {
-    # a, b, c, out, P, M, N, K, in_dtype, c_dtype, out_dtype, stream
-    "tile_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, c, out, P, M, N, K, in_dtype, c_dtype, out_dtype, block, stream
+    "tile_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 })
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K and N must be multiples of these for the kernel's body of each input type
 K_QUANTUM = {torch.float32: 1, torch.bfloat16: 8}
 N_QUANTUM = {torch.float32: 4, torch.bfloat16: 8}
+# the block knob: 0 keeps the launcher's own tile; 64 and 128 force BN of
+# the bf16 body's 128 x BN tile, or the fp32 body's square tile
+BLOCKS = (0, 64, 128)
+
+
+def check_block(block) -> int:
+    """``block`` as an int, or ``ValueError`` unless it is in ``BLOCKS``."""
+    if block not in BLOCKS:
+        raise ValueError(f"tile_matmul: block {block!r} is not one of "
+                         f"{BLOCKS}")
+    return int(block)
 
 
 def _pad_to(x: int, q: int) -> int:
@@ -51,9 +62,11 @@ def matmul_plain(a, b, c=None, out_dtype=None):
     return y.to(out_dtype)
 
 
-def matmul_cuda(a, b, c=None, out_dtype=None):
-    """One launch of the CUDA tile GEMM over all P batches."""
+def matmul_cuda(a, b, c=None, out_dtype=None, block: int = 0):
+    """One launch of the CUDA tile GEMM over all P batches; ``block``
+    (``BLOCKS``) picks the output tile, 0 leaves it to the launcher."""
     out_dtype = out_dtype or a.dtype
+    block = check_block(block)
     require_cuda_tensors("tile_matmul", a, b, c)
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
@@ -90,7 +103,7 @@ def matmul_cuda(a, b, c=None, out_dtype=None):
         out.data_ptr(),
         p, m, n_pad, k_pad, DTYPE_CODES[a.dtype],
         DTYPE_CODES[c.dtype] if c is not None else -1,
-        DTYPE_CODES[out_dtype], stream_handle(a.device))
+        DTYPE_CODES[out_dtype], block, stream_handle(a.device))
     TILE_MATMUL.check(err)
     TILE_MATMUL.launches += 1
     return out if n_pad == n else out[..., :n].contiguous()

@@ -8,7 +8,9 @@ asks its mesh context whether a 'model' ring is present, the port takes
 projections run as one systolic ring (``core/collective_matmul``), prefill
 attention as ring attention and decode attention as ring decode
 (``core/ring_attention``). MLA and cross-attention have no ring path, as
-in the reference.
+in the reference. Under ``cfg.autotune`` a cached measured plan
+(``repro_torch.autotune``) may rewrite the systolic fields first, and
+turn the rings of a ``baseline`` config on.
 
 MLA prefill expands the latent into per-head K/V (streaming KV blocks
 through an online softmax at ``S >= BLOCKED_ATTN_THRESHOLD``); MLA decode
@@ -74,6 +76,19 @@ def ring_size(cfg: ModelConfig, n_pe: int) -> int:
     return n_pe if cfg.systolic_mode != "baseline" else 0
 
 
+def _tuned(cfg: ModelConfig, op: str, shape, n_pe: int) -> ModelConfig:
+    """Config.autotune gate of ``gqa_forward``, ``gqa_decode`` and
+    ``moe.apply_moe``: rewrite the systolic fields from a cached measured
+    plan for (op, shape) on the ring of ``n_pe`` (``autotune.tuned_cfg``:
+    cache-only, defaults stand on a miss or with the flag off). Without a
+    ring (``n_pe == 0``, the reference's missing mesh context) the config
+    stands."""
+    if n_pe == 0:
+        return cfg
+    from repro_torch.autotune.api import tuned_cfg
+    return tuned_cfg(cfg, op, shape, n_pe)
+
+
 def _sched(cfg: ModelConfig, n_pe: int, *, cycle_only: bool = False):
     """cfg.systolic_topology -> schedule (None keeps the +1 ring)."""
     if cfg.systolic_topology in ("", "ring"):
@@ -92,7 +107,8 @@ def _qkv(params, x, cfg: ModelConfig, positions, n_pe: int = 0):
         # one systolic x-stream feeds the three projection sinks
         q, k, v = cm.systolic_qkv(
             x, params["wq"].to(dt), params["wk"].to(dt), params["wv"].to(dt),
-            n, cfg.systolic_mode, topo=_sched(cfg, n))
+            n, cfg.systolic_mode, topo=_sched(cfg, n),
+            block=cfg.kernel_block)
     else:
         q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
         k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
@@ -155,6 +171,7 @@ def gqa_forward(params, x, cfg: ModelConfig, positions=None,
                 return_kv: bool = False, n_pe: int = 0):
     """Full-sequence causal attention (prefill). x: [B,S,D]."""
     b, s, _ = x.shape
+    cfg = _tuned(cfg, "attention", x.shape, n_pe)
     dt = adtype(cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -183,7 +200,8 @@ def gqa_forward(params, x, cfg: ModelConfig, positions=None,
     if (not used_ring and n > 1 and cfg.num_heads % n == 0 and s % n == 0):
         from repro_torch.core import collective_matmul as cm
         y = cm.systolic_out_proj(out, params["wo"].to(dt), n,
-                                 cfg.systolic_mode, topo=_sched(cfg, n))
+                                 cfg.systolic_mode, topo=_sched(cfg, n),
+                                 block=cfg.kernel_block)
     else:
         y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
     if return_kv:
@@ -229,6 +247,7 @@ def gqa_decode(params, x, cache, cfg: ModelConfig, active=None,
     (y [B,1,D], cache)."""
     pos = cache["pos"]                                       # [B]
     b = x.shape[0]
+    cfg = _tuned(cfg, "decode", x.shape, n_pe)
     q, k, v = _qkv(params, x, cfg, pos[:, None], n_pe)
     k_all, v_all = cache["k"], cache["v"]
     s_cache = k_all.shape[1]

@@ -16,7 +16,9 @@ When ``cfg.systolic_mode`` is a link mode and an emulated ring of ``n_pe``
 PEs is given, ``apply_moe`` takes the expert-ring schedule of
 ``core/ring_moe`` instead (behind ``ring_moe_applicable``): expert shards
 stay resident and routed token blocks ride the ring; its expert FFN runs
-through the tile-matmul kernel.
+through the tile-matmul kernel. Under ``cfg.autotune`` a cached measured
+plan for the ``moe`` op may rewrite the systolic fields (and the expert
+FFN's tile) before that gate decides.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring_moe
 from repro_torch.core import topology as topo_lib
-from repro_torch.models.attention import ring_size
+from repro_torch.models.attention import _tuned, ring_size
 from repro_torch.models.common import adtype, param, pdtype
 
 
@@ -134,6 +136,8 @@ def apply_moe(params, x, cfg: ModelConfig, n_pe: int = 0):
     logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
     weights, idx, aux = _topk_routing(logits, cfg)
 
+    # a cached plan may flip the systolic fields before the ring gate
+    cfg = _tuned(cfg, "moe", x.shape, n_pe)
     n = ring_size(cfg, n_pe)
     if n and ring_moe.ring_moe_applicable(cfg, x, n):
         # expert shards stay resident, token blocks and their routing ride
@@ -145,7 +149,7 @@ def apply_moe(params, x, cfg: ModelConfig, n_pe: int = 0):
         y = ring_moe.systolic_ring_moe(
             x.to(dt), idx, pos, weights, params["w_gate"].to(dt),
             params["w_up"].to(dt), params["w_down"].to(dt), cap, n,
-            cfg.systolic_mode, topo=topo)
+            cfg.systolic_mode, topo=topo, block=cfg.kernel_block)
         return y.to(dt), aux * cfg.router_aux_loss
 
     # sub-experts: a token routed to expert e goes to sub-experts

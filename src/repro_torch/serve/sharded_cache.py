@@ -170,24 +170,35 @@ class RingShardedBackend(DecodeBackend):
     surfacing link health. ``telemetry=True`` counts the queue traffic of
     every step and prefill.
 
+    ``plan`` (an ``autotune.Plan``) threads a measured tuning plan into
+    the backend: it overrides ``mode`` and rewrites the config's systolic
+    fields (mode, topology, block) before the model is built: the serving
+    end of the Config.autotune path.
+
     The reference's ``param_axes`` is a mesh-sharding rule and has no
-    meaning on one card; its ``plan=`` (a tuning plan from the autotuner)
-    waits for the autotuner's port.
+    meaning on one card.
     """
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params,
                  n_pe: int, mode: str = "qlr", checked: bool = False,
-                 telemetry: bool = False, device="cuda"):
+                 telemetry: bool = False, device="cuda", plan=None):
+        if plan is not None:
+            mode = plan.mode
         self.n_pe = n_pe
         self.mode = mode
+        self.plan = plan
         self.checked = checked
         self.telemetry = telemetry
         self.telemetry_on = telemetry
         self.stats_total = linkstats.zeros()
         self.last_health: dict = {}
-        self.name = f"ring-{mode}" + ("+checked" if checked else "")
-        super().__init__(replace(cfg, systolic_mode=mode), scfg, params,
-                         device=device, n_pe=n_pe)
+        self.name = f"ring-{mode}" + ("+checked" if checked else "") \
+            + ("+tuned" if plan is not None else "")
+        cfg = replace(cfg, systolic_mode=mode)
+        if plan is not None:
+            from repro_torch.autotune.api import apply_plan
+            cfg = apply_plan(cfg, plan)
+        super().__init__(cfg, scfg, params, device=device, n_pe=n_pe)
         self._probe_topo = None
         if checked and mode in queues.MODES:
             # the canary rides the schedule the decode stream hops (grids

@@ -1062,3 +1062,69 @@ def test_cuda_whisper_prefill_vs_streamed_decode(cuda):
     assert fk.FLASH_CARRY.launches - before == \
         cfg.num_layers * 2 * (1 + tokens.shape[1])
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+# the block knob: (P, M, K, N) with ragged M and N = 64 (the narrowest
+# wgmma width), and the serving FFN AG hop
+BLOCK_SHAPES = {"ragged": (3, 500, 256, 64), "ffn_ag_hop": (4, 512, 1024, 768)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [0, 64, 128])
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(BLOCK_SHAPES))
+def test_cuda_tile_matmul_blocks_vs_twin(cuda, shape, dtype, carry, block):
+    """Every forced tile (bf16: BN; fp32: the square tile) against the
+    twin, at the bounds of ``test_cuda_tile_matmul_vs_twin``."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    p, m, k, n = BLOCK_SHAPES[shape]
+    a = torch.randn(p, m, k, generator=g, device=cuda).to(dtype)
+    b = torch.randn(p, k, n, generator=g, device=cuda).to(dtype)
+    c = torch.randn(p, m, n, generator=g, device=cuda).to(dtype) \
+        if carry else None
+    got = mk.matmul_cuda(a, b, c, dtype, block)
+    want = mk.matmul_plain(a, b, c, dtype)
+    torch.cuda.synchronize()
+    tol = (1e-4 if dtype == torch.float32 else 2 ** -7) \
+        * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    with pytest.raises(ValueError, match="block"):
+        mk.matmul_cuda(a, b, c, dtype, 96)
+
+
+@pytest.mark.cuda
+def test_cuda_tune_three_matmul_plans_then_cache_hit(cuda, tmp_path):
+    """One sweep over three kernel plans of the AG ring on the card: every
+    plan timed, the winner persisted; the second lookup runs no trial."""
+    from repro_torch.autotune import Plan, TuneCache, best_plan, tune
+    from repro_torch.autotune import measure
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.core import topology as tp
+    g = torch.Generator(device=cuda).manual_seed(10)
+    n = 4
+    x = torch.randn(n, 2, 256, 1024, generator=g, device=cuda).bfloat16()
+    w = torch.randn(n, 1024, 768, generator=g, device=cuda).bfloat16()
+
+    def build(plan):
+        topo = tp.resolve_safe(plan.topology, "model", n)
+        return (lambda a, b: cm.ring_ag_matmul(a, [b], topo, plan.mode,
+                                               plan.block)[0], (x, w))
+
+    plans = [Plan("qlr", "ring", 0, True), Plan("qlr", "ring", 64, True),
+             Plan("xqueue", "snake_fold", 128, True)]
+    cache = TuneCache(str(tmp_path / "c.json"))
+    measure.reset_trials()
+    launches = mk.TILE_MATMUL.launches
+    winner, results = tune("matmul", (2, 4 * 256, 1024), "bfloat16", n,
+                           build, cache=cache, plans=plans, iters=2)
+    assert measure.trial_count() == 3
+    assert all("error" not in r and 0 < r["us"] < float("inf")
+               for r in results.values()), results
+    assert all(r["bytes"] > 0 for r in results.values())
+    assert mk.TILE_MATMUL.launches > launches
+    assert winner in plans
+    measure.reset_trials()
+    assert best_plan("matmul", (2, 1024, 1024), "bfloat16", n,
+                     cache=TuneCache(cache.path)) == winner
+    assert measure.trial_count() == 0

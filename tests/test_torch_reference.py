@@ -104,6 +104,7 @@ def test_port_imports_no_jax():
         "import repro_torch.core.halo, repro_torch.core.fft\n"
         "import repro_torch.configs.mempool_dsp, repro_torch.kernels.fft.ops\n"
         "import repro_torch.models.moe, repro_torch.core.ring_moe\n"
+        "import repro_torch.autotune\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n" % str(SRC))

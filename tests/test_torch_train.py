@@ -277,7 +277,7 @@ def kernel_functions(monkeypatch):
     plain_mm, plain_flash = mk.matmul_plain, fk.flash_carry_plain
     launches = {"tile_matmul": 0, "flash_carry": 0}
 
-    def mm_kernel(a, b, c=None, out_dtype=None):
+    def mm_kernel(a, b, c=None, out_dtype=None, block=0):
         launches["tile_matmul"] += 1
         return plain_mm(a, b, c, out_dtype)
 

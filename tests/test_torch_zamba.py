@@ -293,7 +293,7 @@ def kernel_functions(monkeypatch):
         launches["ssd_chunks"] += 1
         return plain_ssd(*args, **kw)
 
-    def mm_kernel(a, b, c=None, out_dtype=None):
+    def mm_kernel(a, b, c=None, out_dtype=None, block=0):
         launches["tile_matmul"] += 1
         return plain_mm(a, b, c, out_dtype)
 
