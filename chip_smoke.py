@@ -7,7 +7,8 @@ depth on the ring, run mixtral-8x22b's MoE family and the 2-D grid
 schedules at full width, prefill, train and serve zamba2-1.2b, serve
 qwen3-14b and prefill olmo-1b and granite-34b at full width, and run
 internvl2-1b, deepseek-v2-lite-16b and whisper-tiny at full width and
-depth, and run the autotuner's sweeps and tuned paths on the card.
+depth, run the autotuner's sweeps and tuned paths on the card, and hold
+the dry run's counts (on fake tensors) against measured steps.
 
     python3 chip_smoke.py
 
@@ -173,7 +174,28 @@ non-zero before the result lines are printed:
    blocks equal, both kernels launched), and ``RingShardedBackend(plan=)``
    with the serve winner against the hand-set backend (32 greedy tokens
    of 8 prompts, token for token, both kernels launched); (e) the cache
-   as one ``[autotune-cache]`` JSON line naming the card.
+   as one ``[autotune-cache]`` JSON line naming the card;
+15. the dry run and the roofline: (a) ``DRY_CELLS``, ten cells of the
+   reference's grid covering every shape kind and family (qwen3-0.6b's
+   three kinds on the ring of 4 in qlr and its decode on the dense path;
+   mixtral-8x22b and mamba2-1.3b ``long_500k``, zamba2-1.2b
+   ``prefill_32k``, whisper-tiny ``decode_32k`` on a ring of 2,
+   deepseek-v2-lite-16b ``decode_32k``, internvl2-1b ``prefill_32k`` on a
+   ring of 2), dry-run at full width on fake tensors on the card's device
+   and again on the CPU: every record ok, the kernel counts of the two
+   equal, no kernel library called, no launch, ``memory_allocated``
+   unchanged; (b) qwen3-0.6b at full width and depth, bf16, ring of 4 in
+   qlr, remat "full", each kind at its shape cut to fit the card
+   (``ROOFLINE_CUTS``: train 8 x 4096 in 8 microbatches, prefill 2 x
+   32768, one decode step of 8 rows against a full 32768-slot cache): the
+   dry run's argument bytes equal the real parameters', optimizer
+   state's, cache's and batch's, its launches the real call's; the peak
+   estimate beside ``max_memory_allocated`` (no gate); the median of 3
+   synchronized calls after a warm-up, ``mfu`` (the reference's model
+   FLOPs over time x 989 TFLOP/s) and the roofline share (the count's
+   bound over time), beside the card's name and power limit; phase 9's
+   ``train_mfu`` beside the ``mfu`` of its step; all as one
+   ``[roofline]`` JSON line.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -192,10 +214,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core rate
-              "fp32": 67e12}       # fp32 outside the tensor cores
+# the card's published figures and each kernel's work live in the package
+from repro_torch.roofline import hw  # noqa: E402
+
+HBM_BYTES_PER_S = hw.HBM_BW        # H100 SXM device memory
+PEAK_FLOPS = hw.PEAK_FLOPS         # bf16 on the tensor cores, fp32 outside
+bound = hw.bound_ms
 N_PE = 4
 BATCH = 8
 MAX_SEQ = 1024
@@ -348,16 +374,6 @@ def event_ms(torch, fn, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(nbytes: float, flops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def max_err(got, want) -> float:
@@ -558,22 +574,19 @@ def backward_ms(torch, apply, args, diff):
 
 
 def flash_bound(torch, fk, args, opts):
-    """Bytes and operations this call's data needs: the queries, the K/V
-    of keys some query of the row may attend to, the state in and out;
-    4*D operations per (query, head, attended key)."""
+    """The bound of the work this call's data needs (``fk.work`` at the
+    live pairs): the queries, the K/V of keys some query of the row may
+    attend to, the state in and out; 4*D operations per (query, head,
+    attended key)."""
     q, k, v, m, l, acc, q_off, k_off, klen, kv_row = args
-    bp, sq, h, d = q.shape
-    t, kvh = k.shape[1], k.shape[2]
+    sq, t = q.shape[1], k.shape[1]
     mask = fk.key_mask(q_off.int(), k_off.int(), klen.int(), sq, t,
                        causal=opts["causal"], window=opts["window"])
-    keys_needed = int(mask.any(dim=1).sum())
-    kv_bytes = keys_needed * kvh * d * 2 * k.element_size()
-    out_bytes = m.numel() * 4 * 2 + acc.numel() * (
-        2 if opts.get("normalize") else 4)
-    total = nbytes(q, m, l, acc) + kv_bytes + out_bytes
-    flops = 4 * d * h * int(mask.sum())
-    kind = "bf16" if q.dtype == k.dtype == torch.bfloat16 else "fp32"
-    return bound(total, flops, kind)
+    flops, moved, kind = fk.work(
+        q, k, m, l, acc, normalize=opts.get("normalize", False),
+        out_dtype=opts.get("out_dtype"), pairs=int(mask.sum()),
+        keys=int(mask.any(dim=1).sum()))
+    return bound(moved, flops, kind)
 
 
 def sdpa_call(torch, q, k, v):
@@ -785,9 +798,8 @@ def matmul_record(torch, mk, name, a, b, c, odt, block: int = 0,
         timed = {"plain_ms": time_ms(lambda: mk.matmul_plain(a, b, c, odt),
                                      iters=plain_iters),
                  "library_ms": time_ms(lib_call)}
-    flops = 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
-    kind = "bf16" if a.dtype == bf else "fp32"
-    b_ms, b_by = bound(nbytes(a, b, c, got), flops, kind)
+    flops, moved, kind = mk.work(a, b, c, odt)
+    b_ms, b_by = bound(moved, flops, kind)
     rec = {"case": name, "block": block, "max_abs_err": err, "tol": tol,
            "ok": err <= tol,
            "ms": time_ms(lambda: mk.matmul_cuda(a, b, c, odt, block),
@@ -873,8 +885,8 @@ def check_conv(torch, ck, dev):
             tol = 0.0 if dtype == f32 else 2 ** -7 * scale
             lib_err = float((lib.float() - want.float()).abs().max())
             lib_tol = (1e-4 if dtype == f32 else 5e-2) * scale
-            b_ms, b_by = bound(nbytes(x, top, bot, k, got), 18 * x.numel(),
-                               "fp32")
+            flops, moved, b_kind = ck.work(x, top, bot, k)
+            b_ms, b_by = bound(moved, flops, b_kind)
             name = f"{shape}_{kind}"
             rec = {"case": name, "max_abs_err": err, "tol": tol,
                    "library_err": lib_err, "library_tol": lib_tol,
@@ -937,14 +949,14 @@ def check_fft(torch, ffk, fft, dev):
                                                   reverse=True)
                 plain = lambda x=x: ffk.stage_plain(x, ticks, tw,  # noqa
                                                     reverse=True)
-                lib_call, flops = None, 34 * (n // 4) * 4 * b
+                lib_call, work = None, ffk.work(x, ticks, tw)
                 body, tol = "fft_stage_kernel", None
             else:
                 x = crandn(b, n)
                 call = lambda x=x: fft.fft256_radix4(x, n)  # noqa: E731
                 plain = lambda x=x: ffk.fft_full_plain(x, tw)  # noqa: E731
                 lib_call = lambda x=x: torch.fft.fft(x, dim=-1)  # noqa
-                flops = 4 * 34 * (n // 4) * b
+                work = ffk.full_work(x, tw)
                 body, tol = "fft_full_kernel", 0.0      # bit for bit
             before = ffk.FFT_STAGE.launches
             got = call()
@@ -960,7 +972,7 @@ def check_fft(torch, ffk, fft, dev):
                 lib = lib_call()
                 lib_err = float((got - lib).abs().max() / lib.abs().max())
                 ok = ok and lib_err <= 1e-3
-            b_ms, b_by = bound(nbytes(x, tw, got), flops, "fp32")
+            b_ms, b_by = bound(work[1], work[0], work[2])
             rec = {"case": f"{kind}_B{b}", "max_abs_err": err, "tol": tol,
                    "library_rel_err": lib_err, "ok": ok,
                    "ms": time_ms(call, only=body),
@@ -996,18 +1008,6 @@ SSD_CASES = {"prefill": (4, 64, 1, 2048, 256, 64, 128, -1.0, 0.0),
              "overflow": (1, 8, 1, 512, 256, 64, 128, -4.0, 1.0)}
 
 
-def ssd_flops(bsz, h, grp, nc, l, p, n):
-    """(the least the function needs, as the reference's kernel computes
-    it). Needed: the causal triangle of C B^T once per (batch, group,
-    chunk), the causal triangle of M x and the boundary state per (head,
-    chunk). The reference's kernel: 2 L^2 N for C B^T, 2 L^2 P for M x and
-    2 L P N for the state, per (head, chunk)."""
-    tri = l * (l + 1) // 2
-    return (bsz * grp * nc * 2 * tri * n
-            + bsz * h * nc * (2 * tri * p + 2 * l * p * n),
-            bsz * h * nc * (2 * l * l * n + 2 * l * l * p + 2 * l * p * n))
-
-
 def check_ssd(torch, sk, dev):
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(6)
@@ -1035,11 +1035,12 @@ def check_ssd(torch, sk, dev):
                 w.abs().max()))) for u, w in zip(got, want)]
             tol = 1e-4
             finite = all(bool(torch.isfinite(u).all()) for u in got)
-            flops, flops_ref = ssd_flops(bsz, h, grp, nc, l, p, n)
-            # the bf16 body runs on the tensor cores, the fp32 one on the
-            # CUDA cores: each at the peak of the units it can use
-            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
-            b_ms, b_by = bound(nbytes(x, dt, a, b, c, *got), flops, kind)
+            # the function's work and the reference kernel's; the bf16
+            # body runs on the tensor cores, the fp32 one on the CUDA
+            # cores: each at the peak of the units it can use
+            flops, moved, kind = sk.work(x, dt, a, b, c, **opts)
+            flops_ref = sk.ssd_flops(bh, bsz * grp, nc, l, p, n)[1]
+            b_ms, b_by = bound(moved, flops, kind)
             # yardstick: the three batched products alone, per head, fp32
             rows = sk.group_rows(bh, h, grp, dev)
             xf, bf, cf = x.float(), b.float()[rows], c.float()[rows]
@@ -1064,8 +1065,7 @@ def check_ssd(torch, sk, dev):
                    "plain_ms": time_ms(lambda: sk.ssd_chunks_plain(
                        x, dt, a, b, c, **opts), iters=5),
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "bound_reference_ms": bound(nbytes(x, dt, a, b, c, *got),
-                                               flops_ref, kind)[0],
+                   "bound_reference_ms": bound(moved, flops_ref, kind)[0],
                    "bound_kind": kind,
                    "flops": flops, "flops_reference": flops_ref,
                    "library_ms": None,
@@ -3647,16 +3647,246 @@ def phase14(torch, kernels, mk, dev, card, recs):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+# (a): every shape kind and family at least once, on fake tensors. Cut
+# for host time (each cell runs twice, about 100 s in all): qwen3-0.6b's
+# dense train_4k and prefill_32k (23 and 16 s a pass; no kernel on the
+# dense path), mixtral-8x22b train_4k (43 s) and deepseek-v2-lite-16b
+# train_4k (28 s); the 33-cell sweep is ``launch/dryrun.py --all``
+DRY_CELLS = [("qwen3-0.6b", "decode_32k", "baseline", 0),
+             ("qwen3-0.6b", "train_4k", "qlr", 4),
+             ("qwen3-0.6b", "prefill_32k", "qlr", 4),
+             ("qwen3-0.6b", "decode_32k", "qlr", 4),
+             ("mixtral-8x22b", "long_500k", "qlr", 4),
+             ("mamba2-1.3b", "long_500k", "baseline", 0),
+             ("zamba2-1.2b", "prefill_32k", "qlr", 4),
+             ("whisper-tiny", "decode_32k", "qlr", 2),
+             ("deepseek-v2-lite-16b", "decode_32k", "qlr", 4),
+             ("internvl2-1b", "prefill_32k", "qlr", 2)]
+# (b): qwen3-0.6b's three kinds at shapes cut to fit the card
+ROOFLINE_CUTS = {
+    "train_4k": (8, 8, "batch 256 -> 8 (8 microbatches of 1 x 4096)"),
+    "prefill_32k": (2, None, "batch 32 -> 2"),
+    "decode_32k": (8, None, "batch 128 -> 8 (128 rows of bf16 KV cache "
+                   "at 32768 positions are about 481 GB)")}
+
+
+def dry_run_cells(torch, kernels, dev):
+    """(a) Each of ``DRY_CELLS`` dry-run on fake tensors on the card's
+    device and again on the CPU: every record ok, the kernel counts of the
+    two equal, no kernel library called, no launch and no byte of device
+    memory allocated."""
+    from repro_torch.launch import dryrun
+    libs_called = []
+
+    def refuse(kern):
+        def lib():
+            libs_called.append(kern.name)
+            raise AssertionError(f"the dry run called {kern.name}'s library")
+        return lib
+    launches0 = {k.name: k.launches for k in kernels}
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    out = []
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.lib = refuse(k)
+    try:
+        for arch, shape, mode, n_pe in DRY_CELLS:
+            card = dryrun.run_cell(arch, shape, mode, n_pe, dev, out_dir=None)
+            cpu = dryrun.run_cell(arch, shape, mode, n_pe, "cpu",
+                                  out_dir=None)
+            assert card["ok"] and cpu["ok"], (card.get("traceback"),
+                                              cpu.get("traceback"))
+            got, want = (r["counts"]["by_kernel"] for r in (card, cpu))
+            assert got == want, (card["cell"], got, want)
+            out.append({"cell": card["cell"], "device": card["device"],
+                        "by_kernel": got,
+                        "flops": card["counts"]["flops_per_device"],
+                        "bytes": card["counts"]["hbm_bytes_per_device"],
+                        "peak_bytes": card["memory"]["peak_bytes"],
+                        "host_s": card["timings"]["host_s"],
+                        "cpu_host_s": cpu["timings"]["host_s"]})
+    finally:
+        for k in kernels:
+            del k.lib
+    torch.cuda.synchronize()
+    assert not libs_called, libs_called
+    assert {k.name: k.launches for k in kernels} == launches0
+    assert torch.cuda.memory_allocated() == mem0, \
+        (torch.cuda.memory_allocated(), mem0)
+    seconds = time.perf_counter() - t0
+    log(f"[roofline] (a) {len(out)} cells on fake {dev} and cpu in "
+        f"{seconds:.1f} s: kernel counts equal, nothing allocated or "
+        f"launched")
+    return {"cells": out, "seconds": seconds}
+
+
+def measured_cell(torch, kernels, dev, shape_name: str, card: str):
+    """(b) One of qwen3-0.6b's kinds at full width and depth, bf16, ring
+    of 4 in qlr, at ``ROOFLINE_CUTS``' shape: the dry run's count, then
+    the real step on the card: the same argument bytes and launches, the
+    peak estimate beside ``max_memory_allocated``, the median of 3
+    synchronized calls after one warm-up, ``mfu`` and the roofline
+    share; a prefill or decode call profiled after them."""
+    from repro_torch.configs import TrainConfig, get_config, get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis
+    from repro_torch.train import step as step_lib
+    cfg = replace(get_config("qwen3-0.6b"), systolic_mode="qlr",
+                  remat="full")
+    batch_rows, micro, reduced = ROOFLINE_CUTS[shape_name]
+    shape = replace(get_shape(shape_name), global_batch=batch_rows)
+    tcfg = TrainConfig(microbatches=micro or 1, warmup_steps=0,
+                       schedule="constant", learning_rate=3e-4)
+    t0 = time.perf_counter()
+    counted = dryrun.count_cell(cfg, shape, tcfg, N_PE, dev)
+    dry_s = time.perf_counter() - t0
+    rec = {"cell": f"qwen3-0.6b__{shape_name}__1xH100__qlr-pe{N_PE}__cut",
+           "arch": "qwen3-0.6b", "shape": shape_name, "kind": shape.kind,
+           "chips": 1, "device": torch.cuda.get_device_name(dev),
+           "n_active_params": cfg.n_active_params, "seq_len": shape.seq_len,
+           "global_batch": shape.global_batch, "ok": True, **counted}
+    roof = analysis.analyze_cell(rec)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    specs, _ = step_lib.batch_shapes(cfg, shape, dev)
+    batch = {k: (torch.randint(0, cfg.vocab_size, v.shape, generator=g,
+                               device=dev, dtype=v.dtype)
+                 if k != "active" else torch.ones(v.shape, dtype=v.dtype,
+                                                  device=dev))
+             for k, v in specs.items()}
+    holder = {}
+    if shape.kind == "train":
+        holder["state"] = step_lib.init_state(cfg, tcfg, 0, dev)
+        train = step_lib.make_train_step(cfg, tcfg, N_PE)
+        args = (holder["state"], batch)
+
+        def call():
+            holder["state"], metrics = train(holder["state"], batch)
+            return metrics["loss"]
+    elif shape.kind == "prefill":
+        params = build_model(cfg).init(0, dev)
+        prefill = step_lib.make_prefill_step(cfg, N_PE)
+        args = (params, batch)
+
+        def call():
+            return prefill(params, batch)
+    else:
+        params = build_model(cfg).init(0, dev)
+        cache = build_model(cfg).init_cache(shape.global_batch,
+                                            shape.seq_len, dev)
+        # one token against a full cache: every row at its last position
+        cache["layers"]["pos"].fill_(shape.seq_len - 1)
+        serve = step_lib.make_serve_step(cfg, N_PE)
+        args = (params, cache, batch["tokens"], batch["active"])
+
+        def call():
+            cache["layers"]["pos"].fill_(shape.seq_len - 1)
+            return serve(params, cache, batch["tokens"], batch["active"])[0]
+    arg_bytes = dryrun.tree_bytes(args)
+    del args
+    assert arg_bytes == counted["memory"]["argument_bytes"], \
+        (arg_bytes, counted["memory"]["argument_bytes"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for k in kernels:
+        k.launches = 0
+    out = call()                                    # warm-up, counted
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v["launches"]
+            for k, v in counted["counts"]["by_kernel"].items()}
+    assert launches == want, (shape_name, launches, want)
+    assert bool(torch.isfinite(out.float()).all()), f"{shape_name}: non-finite"
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    median = sorted(walls)[1]
+    # where a call's time goes (the train step's trace, 12k launches,
+    # would take minutes to analyse)
+    breakdown = None if shape.kind == "train" else profile(
+        torch, call, top=6, warm=False)
+    result = {
+        "cell": rec["cell"], "kind": shape.kind, "reduced": reduced,
+        "shape": {"global_batch": shape.global_batch,
+                  "seq_len": shape.seq_len,
+                  "microbatches": micro},
+        "argument_bytes": arg_bytes, "launches": launches,
+        "peak_estimate_bytes": counted["memory"]["peak_bytes"],
+        "max_memory_allocated": peak, "memory_before_call": base_mem,
+        "walls_s": walls, "median_s": median,
+        "model_flops": roof["model_flops"],
+        "counted_flops": roof["flops_per_device"],
+        "flops_by_kind": roof["flops_by_kind"],
+        "hbm_bytes": roof["hbm_bytes_per_device"],
+        "link_bytes": roof["link_bytes"],
+        "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+        "link_s": roof["link_s"], "dominant": roof["dominant"],
+        "step_s_bound": roof["step_s_bound"],
+        "useful_ratio": roof["useful_ratio"],
+        "mfu": analysis.mfu(rec, median),
+        "roofline_share": roof["step_s_bound"] / median,
+        "breakdown": breakdown, "dry_run_host_s": dry_s, "card": card}
+    log(f"[roofline] (b) {shape_name} cut ({reduced}): {median * 1e3:.1f} "
+        f"ms median, mfu {result['mfu']:.4f}, roofline share "
+        f"{result['roofline_share']:.4f} ({roof['dominant']}-bound "
+        f"{roof['step_s_bound'] * 1e3:.1f} ms), launches {launches}, peak "
+        f"{peak / 1e9:.2f} GB against the estimate "
+        f"{counted['memory']['peak_bytes'] / 1e9:.2f} GB; {card}")
+    del holder, out
+    if shape.kind != "train":
+        del params
+    if shape.kind == "decode":
+        del cache
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase15(torch, kernels, dev, card, train):
+    """The dry run on the card's path (a), then measured against the
+    count (b); phase 9's ``train_mfu`` beside the dry run's ``mfu`` of
+    the same step."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline import analysis
+    t0 = time.perf_counter()
+    dry = dry_run_cells(torch, kernels, dev)
+    torch.cuda.empty_cache()
+    measured, launches = {}, {}
+    for name in ROOFLINE_CUTS:
+        measured[name] = measured_cell(torch, kernels, dev, name, card)
+        launches[f"roofline_{name}"] = measured[name]["launches"]
+    meta = {"kind": "train", "global_batch": TRAIN_BATCH,
+            "seq_len": TRAIN_SEQ,
+            "n_active_params": get_config("qwen3-0.6b").n_active_params}
+    phase9 = {"train_mfu": train["train_mfu"],
+              "mfu": analysis.mfu(meta, train["median_step_ms"] / 1e3)}
+    log(f"[roofline] phase 9's step: train_mfu {phase9['train_mfu']:.4f} "
+        f"(non-embedding 6N, the LM head and causal attention), mfu "
+        f"{phase9['mfu']:.4f} (the reference's 6N with the embeddings, no "
+        f"attention)")
+    out = {"dry_run": dry, "measured": measured, "phase9": phase9,
+           "card": card, "seconds": time.perf_counter() - t0}
+    log(f"[roofline] phase 15 {out['seconds']:.1f} s")
+    print("[roofline] " + json.dumps(out), flush=True)
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
@@ -3760,6 +3990,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     p14, p14_launches = phase14(torch, main_path, mk, dev, card, blocks)
 
+    torch.cuda.empty_cache()
+    p15, p15_launches = phase15(torch, kernels.ALL, dev, card, train)
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
@@ -3782,7 +4015,9 @@ def main() -> int:
                    **{name: got.get(kern.name, 0)
                       for name, got in p13_launches.items()},
                    **{name: got.get(kern.name, 0)
-                      for name, got in p14_launches.items()}}
+                      for name, got in p14_launches.items()},
+                   **{name: got.get(kern.name, 0)
+                      for name, got in p15_launches.items()}}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -3881,7 +4116,7 @@ def main() -> int:
         "moe_prefill": mprefill, "moe_parity": mparity, "moe_train": mtrain,
         "moe_serve": moeserve, "grid_prefill": gprefill,
         "cannon_grid": cgrid, "phase12": p12, "phase13": p13,
-        "phase14": p14}
+        "phase14": p14, "phase15": p15}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

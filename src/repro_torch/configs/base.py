@@ -4,7 +4,10 @@ The fields the ported slices read (dense serving and training, Mamba2,
 MoE with MLA, the Zamba2 hybrid, the Whisper encoder-decoder and the
 InternVL2 patch projector), with the reference's names and defaults
 (``repro/configs/base.py``), so a configuration reads the same in both
-packages.
+packages; the reference's parameter counts, shape grid
+(``ShapeConfig``, ``SHAPES``, ``shape_applicable``) and
+``config_summary`` for the dry run. Its ``MeshConfig`` has no
+counterpart: the port runs on one card, and its records name the card.
 """
 from __future__ import annotations
 
@@ -114,6 +117,120 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count (for 6ND model-FLOPs accounting)."""
+        return _count_params(self)
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed-in experts count)."""
+        return _count_params(self, active_only=True)
+
+
+def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The reference's analytic parameter count
+    (``repro/configs/base.py::_count_params``), formula for formula: it is
+    what ``roofline.analysis.model_flops`` counts, so both packages name
+    the same work. It is approximate where the reference's is (Zamba2's
+    adapters, no norms or biases)."""
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    total = 0
+    # embeddings (+ untied LM head)
+    total += cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+
+    def attn_params() -> int:
+        if cfg.attention_type == "mla":
+            qd = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            p = d * cfg.num_heads * qd                       # q proj
+            p += d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)  # kv down
+            p += cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim
+                                                     + cfg.v_head_dim)
+            p += cfg.num_heads * cfg.v_head_dim * d          # out
+            return p
+        p = d * cfg.num_heads * hd                           # q
+        p += 2 * d * cfg.num_kv_heads * hd                   # k, v
+        p += cfg.num_heads * hd * d                          # out
+        return p
+
+    def mlp_params(ff: int) -> int:
+        mult = 3 if cfg.mlp_kind == "swiglu" else 2
+        return mult * d * ff
+
+    def ssm_params() -> int:
+        d_in = cfg.ssm_expand * d
+        nheads = d_in // cfg.ssm_headdim
+        conv_dim = d_in + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        p = d * (2 * d_in + 2 * cfg.ssm_ngroups * cfg.ssm_state
+                 + nheads)                                   # in_proj
+        p += conv_dim * cfg.ssm_conv_kernel                  # conv1d
+        p += nheads * 2                                      # A_log, D
+        p += d_in * d                                        # out proj
+        return p
+
+    if cfg.family == "ssm":
+        total += cfg.num_layers * ssm_params()
+    elif cfg.family == "hybrid":
+        total += cfg.num_layers * ssm_params()
+        total += attn_params() + mlp_params(cfg.d_ff)        # one shared block
+        total += cfg.n_shared_attn * 2 * d * d // 8          # adapters
+    elif cfg.family == "moe":
+        n_moe = cfg.num_layers - cfg.first_k_dense
+        ff_e = cfg.d_ff_expert or cfg.d_ff
+        total += cfg.num_layers * attn_params()
+        total += cfg.first_k_dense * mlp_params(cfg.d_ff_dense or cfg.d_ff)
+        routed = (cfg.experts_per_token if active_only
+                  else cfg.num_experts) * mlp_params(ff_e)
+        shared = cfg.num_shared_experts * mlp_params(ff_e)
+        router = d * cfg.num_experts
+        total += n_moe * (routed + shared + router)
+    elif cfg.family == "encdec":
+        total += (cfg.enc_layers + cfg.num_layers) * (attn_params()
+                                                      + mlp_params(cfg.d_ff))
+        total += cfg.num_layers * attn_params()              # cross attention
+    else:  # dense / vlm
+        total += cfg.num_layers * (attn_params() + mlp_params(cfg.d_ff))
+        if cfg.family == "vlm":
+            total += cfg.vit_dim * d * 2                     # projector
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's grid)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch x shape) is a valid dry-run cell; reason if not.
+
+    ``long_500k`` needs sub-quadratic attention: it runs for the SSM and
+    hybrid families and sliding-window archs, and is skipped for pure
+    full-attention archs, as in the reference.
+    """
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid") or cfg.sliding_window > 0
+        )
+        if not sub_quadratic:
+            return False, "pure full-attention arch: long_500k skipped"
+    return True, ""
+
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -177,3 +294,22 @@ def apply_overrides(cfg: Any, overrides: list[str]) -> Any:
             raise KeyError(f"{type(cfg).__name__} has no field {key!r}")
         updates[key] = _coerce(value, getattr(cfg, key))
     return replace(cfg, **updates)
+
+
+def _human(n: int) -> str:
+    if n >= 1e9:
+        return f"{n / 1e9:.2f}B"
+    return f"{n / 1e6:.2f}M"
+
+
+def config_summary(cfg: ModelConfig) -> str:
+    n = cfg.n_params
+    na = cfg.n_active_params
+    lines = [f"{cfg.name} [{cfg.family}] ~{_human(n)} params"]
+    if na != n:
+        lines.append(f"  active/token ~{_human(na)}")
+    lines.append(
+        f"  L={cfg.num_layers} d={cfg.d_model} H={cfg.num_heads} "
+        f"kv={cfg.num_kv_heads} ff={cfg.d_ff} vocab={cfg.vocab_size}"
+    )
+    return "\n".join(lines)

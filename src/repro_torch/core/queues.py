@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.core import faults
 from repro_torch.core.topology import GridSchedule, Topology
+from repro_torch.kernels._build import fake_mode_active
 from repro_torch.obs import linkstats
 
 MODES = ("sw", "xqueue", "qlr")
@@ -66,13 +67,21 @@ def table_cache(maxsize: int):
     tables, twiddles), which build them outside inference mode: a table
     first built while serving (``torch.inference_mode``) would be an
     inference tensor, which autograd refuses to save when a training step
-    later indexes with it."""
+    later indexes with it. Under a dry run's ``FakeTensorMode`` the table
+    is built anew and not cached: a fake table must not outlive its mode,
+    nor reach a real run."""
     def wrap(fn):
         @functools.lru_cache(maxsize=maxsize)
-        @functools.wraps(fn)
-        def cached(*args):
+        def build(*args):
             with torch.inference_mode(False):
                 return fn(*args)
+
+        @functools.wraps(fn)
+        def cached(*args):
+            if fake_mode_active():
+                return fn(*args)
+            return build(*args)
+        cached.cache_clear = build.cache_clear
         return cached
     return wrap
 

@@ -123,6 +123,21 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def fake_mode_active() -> bool:
+    """True inside a dry run's ``FakeTensorMode``."""
+    import torch
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def is_fake(*tensors) -> bool:
+    """True when any given tensor is a dry run's ``FakeTensor``: it has a
+    shape, a type and a device but no data, so a wrapper allocates its
+    outputs and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 def require_cuda_tensors(name: str, *tensors) -> None:
     """Raise unless every tensor lies on one CUDA device."""
     devs = {t.device for t in tensors if t is not None}

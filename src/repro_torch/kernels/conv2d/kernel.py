@@ -23,9 +23,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels._build import (
     Kernel,
+    is_fake,
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.roofline import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 CONV2D_3X3 = Kernel("conv2d_3x3", {
@@ -54,6 +56,13 @@ def conv_strip(shape, itemsize: int, addresses) -> int:
     if (w * itemsize) % VEC_BYTES or any(a % VEC_BYTES for a in addresses):
         return 0
     return r if r <= WHOLE_BLOCK else STRIP
+
+
+def work(x, top, bot, weight):
+    """(operations, bytes, type) of one launch: nine multiply-adds per
+    output element; x, the halos and the taps read once, the output
+    written once; fp32 arithmetic on the CUDA cores in both types."""
+    return 18 * x.numel(), count.nbytes(x, top, bot, weight, x), "fp32"
 
 
 def conv_plain(x, top, bot, weight):
@@ -91,7 +100,7 @@ def conv_cuda(x, top, bot, weight):
     bot = bot.contiguous() if bot is not None else None
     w32 = weight.float().contiguous()
     out = torch.empty_like(x)
-    if out.numel() == 0:
+    if out.numel() == 0 or is_fake(x, top, bot, weight):   # fake: dry run
         return out
     ptrs = [t.data_ptr() if t is not None else None
             for t in (x, top, bot, out)]
@@ -107,6 +116,7 @@ def conv_cuda(x, top, bot, weight):
 
 def conv2d_3x3(x, top, bot, weight):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    if x.device.type == "cpu":
-        return conv_plain(x, top, bot, weight)
-    return conv_cuda(x, top, bot, weight)
+    with count.kernel(CONV2D_3X3.name, lambda: work(x, top, bot, weight)):
+        if x.device.type == "cpu":
+            return conv_plain(x, top, bot, weight)
+        return conv_cuda(x, top, bot, weight)

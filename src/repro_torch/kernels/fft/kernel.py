@@ -31,9 +31,11 @@ import torch
 
 from repro_torch.kernels._build import (
     Kernel,
+    is_fake,
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.roofline import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FFT_STAGE = Kernel("fft_stage", {
@@ -68,6 +70,27 @@ def _check(x, stage, tw) -> int:
         raise ValueError(f"fft_stage: stage {tuple(stage.shape)} / tw "
                          f"{tuple(tw.shape)} do not match x {tuple(x.shape)}")
     return digits
+
+
+# real operations of one radix-4 butterfly with its twiddle multiplies
+BUTTERFLY_FLOPS = 34
+
+
+def work(x, stage, tw):
+    """(operations, bytes, type) of one ``fft_stage`` launch: one stage of
+    n/4 butterflies per row; x, the stages and the twiddles read once, the
+    output written once; fp32."""
+    p, b, n = x.shape
+    return (BUTTERFLY_FLOPS * (n // 4) * p * b,
+            count.nbytes(x, stage, tw, x), "fp32")
+
+
+def full_work(x, tw):
+    """(operations, bytes, type) of one ``fft_full`` launch: all D stages
+    of every row; x and the twiddles read once, the output written once."""
+    rows, n = x.shape
+    return (tw.shape[0] * BUTTERFLY_FLOPS * (n // 4) * rows,
+            count.nbytes(x, tw, x), "fp32")
 
 
 def stage_plain(x, stage, tw, reverse: bool = False):
@@ -113,7 +136,7 @@ def stage_cuda(x, stage, tw, reverse: bool = False):
     stage = stage.to(torch.int32).contiguous()
     tw = tw.contiguous()
     out = torch.empty_like(x)
-    if out.numel() == 0:
+    if out.numel() == 0 or is_fake(x, stage, tw):   # fake: a dry run's
         return out
     err = FFT_STAGE.lib().fft_stage(
         x.data_ptr(), stage.data_ptr(), tw.data_ptr(), out.data_ptr(),
@@ -125,9 +148,10 @@ def stage_cuda(x, stage, tw, reverse: bool = False):
 
 def fft_stage(x, stage, tw, reverse: bool = False):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    if x.device.type == "cpu":
-        return stage_plain(x, stage, tw, reverse)
-    return stage_cuda(x, stage, tw, reverse)
+    with count.kernel(FFT_STAGE.name, lambda: work(x, stage, tw)):
+        if x.device.type == "cpu":
+            return stage_plain(x, stage, tw, reverse)
+        return stage_cuda(x, stage, tw, reverse)
 
 
 def _check_full(x, tw) -> int:
@@ -165,7 +189,7 @@ def fft_full_cuda(x, tw):
     x = x.contiguous()
     tw = tw.contiguous()
     out = torch.empty_like(x)
-    if out.numel() == 0:
+    if out.numel() == 0 or is_fake(x, tw):     # fake: a dry run's shapes
         return out
     err = FFT_STAGE.lib().fft_full(x.data_ptr(), tw.data_ptr(),
                                    out.data_ptr(), rows, n, digits,
@@ -177,6 +201,7 @@ def fft_full_cuda(x, tw):
 
 def fft_full(x, tw):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    if x.device.type == "cpu":
-        return fft_full_plain(x, tw)
-    return fft_full_cuda(x, tw)
+    with count.kernel(FFT_STAGE.name, lambda: full_work(x, tw)):
+        if x.device.type == "cpu":
+            return fft_full_plain(x, tw)
+        return fft_full_cuda(x, tw)

@@ -31,9 +31,11 @@ from torch.profiler import record_function
 
 from repro_torch.kernels._build import (
     Kernel,
+    is_fake,
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.roofline import count
 
 NEG_INF = -1e30
 HEAD_DIM_MAX = 128
@@ -65,6 +67,25 @@ def key_mask(q_off, k_off, klen, sq: int, t: int, *, causal: bool,
     if window:
         mask = mask & (qp[:, :, None] - kp[:, None, :] < window)
     return mask
+
+
+def work(q, k, m, l, acc, *, normalize: bool = False, out_dtype=None,
+         pairs: int | None = None, keys: int | None = None):
+    """(operations, bytes, type) of one launch: 4·D operations per
+    (query, head, key) pair (the two products Q·Kᵀ and P·V); the queries,
+    the K and V of the keys read, the state in and the state out.
+    ``pairs`` (query, key) and ``keys`` (query row, key) default to every
+    pair and key of the launch; a caller that holds the offsets' values
+    passes the live ones (``key_mask``)."""
+    bp, sq, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    pairs = bp * sq * t if pairs is None else pairs
+    keys = bp * t if keys is None else keys
+    out_size = (out_dtype or q.dtype).itemsize if normalize else 4
+    moved = (count.nbytes(q, m, l, acc) + keys * kvh * d * 2 * k.itemsize
+             + m.numel() * 4 * 2 + acc.numel() * out_size)
+    kind = "bf16" if q.dtype == k.dtype == torch.bfloat16 else "fp32"
+    return 4 * d * h * pairs, moved, kind
 
 
 def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
@@ -117,6 +138,11 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     if d % vn:
         raise ValueError(f"flash_carry: head_dim {d} is not a multiple of "
                          f"{vn}")
+    if is_fake(q, k, v, m, l, acc):             # a dry run's shapes
+        o_dt = (out_dtype or q.dtype) if normalize else torch.float32
+        return (torch.empty_like(m, dtype=torch.float32),
+                torch.empty_like(l, dtype=torch.float32),
+                torch.empty((bp, h, sq, d), dtype=o_dt, device=q.device))
     # the tensor-core body reads bf16 q as pairs: even strides, 4-byte start
     if q.stride(-1) != 1 or (q.dtype == torch.bfloat16 and (
             any(st % 2 for st in q.stride()[:3]) or q.data_ptr() % 4)):
@@ -196,9 +222,13 @@ def flash_carry(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
                 causal: bool = True, window: int = 0,
                 normalize: bool = False, out_dtype=None):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    if q.device.type == "cpu":
-        return flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen,
-                                 kv_row, causal=causal, window=window,
-                                 normalize=normalize, out_dtype=out_dtype)
-    return _FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
-                             causal, window, normalize, out_dtype)
+    with count.kernel(FLASH_CARRY.name, lambda: work(
+            q, k, m, l, acc, normalize=normalize, out_dtype=out_dtype)):
+        if q.device.type == "cpu":
+            return flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen,
+                                     kv_row, causal=causal, window=window,
+                                     normalize=normalize,
+                                     out_dtype=out_dtype)
+        return _FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen,
+                                 kv_row, causal, window, normalize,
+                                 out_dtype)

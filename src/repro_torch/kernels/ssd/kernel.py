@@ -35,9 +35,11 @@ from torch.profiler import record_function
 
 from repro_torch.kernels._build import (
     Kernel,
+    is_fake,
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.roofline import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SSD_CHUNKS = Kernel("ssd_chunks", {
@@ -69,6 +71,29 @@ def _check(x, dt, a, b, c, nheads: int, ngroups: int):
         raise ValueError(f"ssd_chunks: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)} do not match")
+
+
+def ssd_flops(bh: int, bg: int, nc: int, l: int, p: int, n: int):
+    """(the operations the function needs, the operations the reference's
+    kernel does) over BH head rows and BG group rows. Needed: the causal
+    triangle of C Bᵀ once per (group row, chunk), the causal triangle of
+    M x and the boundary state per (head row, chunk). The reference's
+    kernel: 2 L² N for C Bᵀ, 2 L² P for M x and 2 L P N for the state, per
+    (head row, chunk)."""
+    tri = l * (l + 1) // 2
+    return (bg * nc * 2 * tri * n + bh * nc * (2 * tri * p + 2 * l * p * n),
+            bh * nc * (2 * l * l * n + 2 * l * l * p + 2 * l * p * n))
+
+
+def work(x, dt, a, b, c, *, nheads: int, ngroups: int):
+    """(operations, bytes, type) of one launch: the operations the
+    function needs (``ssd_flops``); the five inputs read once and the
+    three fp32 outputs written once; on the tensor cores for bf16."""
+    bh, nc, l, p = x.shape
+    bg, n = b.shape[0], b.shape[-1]
+    moved = count.nbytes(x, dt, a, b, c) + 4 * bh * nc * (l * p + p * n + l)
+    kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    return ssd_flops(bh, bg, nc, l, p, n)[0], moved, kind
 
 
 def ssd_chunks_plain(x, dt, a, b, c, *, nheads: int, ngroups: int):
@@ -115,7 +140,7 @@ def ssd_chunks_cuda(x, dt, a, b, c, *, nheads: int, ngroups: int):
     y = torch.empty(bh, nc, l, p, **f32)
     states = torch.empty(bh, nc, p, n, **f32)
     expcum = torch.empty(bh, nc, l, 1, **f32)
-    if x.numel() == 0:
+    if x.numel() == 0 or is_fake(x, dt, a, b, c):   # fake: a dry run's
         return y, states, expcum
     err = SSD_CHUNKS.lib().ssd_chunks(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -151,7 +176,9 @@ class _SSDChunks(torch.autograd.Function):
 
 def ssd_chunks(x, dt, a, b, c, *, nheads: int, ngroups: int):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    if x.device.type == "cpu":
-        return ssd_chunks_plain(x, dt, a, b, c, nheads=nheads,
-                                ngroups=ngroups)
-    return _SSDChunks.apply(x, dt, a, b, c, nheads, ngroups)
+    with count.kernel(SSD_CHUNKS.name, lambda: work(
+            x, dt, a, b, c, nheads=nheads, ngroups=ngroups)):
+        if x.device.type == "cpu":
+            return ssd_chunks_plain(x, dt, a, b, c, nheads=nheads,
+                                    ngroups=ngroups)
+        return _SSDChunks.apply(x, dt, a, b, c, nheads, ngroups)

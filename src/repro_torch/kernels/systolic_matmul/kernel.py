@@ -15,9 +15,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels._build import (
     Kernel,
+    is_fake,
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.roofline.count import nbytes
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 TILE_MATMUL = Kernel("tile_matmul", {
@@ -52,6 +54,17 @@ def _aligned16(t):
     return t.clone()
 
 
+def work(a, b, c=None, out_dtype=None) -> tuple[int, int, str]:
+    """(operations, bytes, type) of one launch: 2·P·M·K·N multiply-adds
+    counted as two operations each; A, B and C read once and the output
+    written once; on the tensor cores for bf16 inputs."""
+    p, m, k = a.shape
+    n = b.shape[-1]
+    moved = nbytes(a, b, c) + p * m * n * (out_dtype or a.dtype).itemsize
+    return 2 * p * m * k * n, moved, ("bf16" if a.dtype == torch.bfloat16
+                                      else "fp32")
+
+
 def matmul_plain(a, b, c=None, out_dtype=None):
     """The kernel's arithmetic in plain PyTorch: fp32 accumulation seeded
     from ``c``, rounded once to ``out_dtype`` (default ``a.dtype``)."""
@@ -84,7 +97,7 @@ def matmul_cuda(a, b, c=None, out_dtype=None, block: int = 0):
                              f"{c.dtype} does not match {(p, m, n)}")
         c = c.contiguous()
     a, b = a.contiguous(), b.contiguous()
-    if p * m * n == 0:
+    if p * m * n == 0 or is_fake(a, b, c):      # fake: a dry run's shapes
         return torch.empty((p, m, n), dtype=out_dtype, device=a.device)
     # the wgmma body reads K and N in 16-byte chunks of bf16, the SGEMM body
     # N in 16-byte chunks of fp32: pad what does not fill whole chunks

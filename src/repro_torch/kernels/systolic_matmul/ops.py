@@ -21,6 +21,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels.systolic_matmul import kernel
+from repro_torch.roofline import count
 
 
 class _TileMatmul(torch.autograd.Function):
@@ -79,10 +80,12 @@ def tile_matmul(x, w, acc=None, block: int = 0):
     x3 = x.reshape(p, m, k).to(in_dtype)
     w3 = w3.to(in_dtype)
     c3 = acc.reshape(p, m, n) if acc is not None else None
-    if x.device.type == "cpu":
-        y = kernel.matmul_plain(x3, w3, c3, out_dtype)
-    else:
-        y = _TileMatmul.apply(x3, w3, c3, out_dtype, block)
+    with count.kernel(kernel.TILE_MATMUL.name,
+                      lambda: kernel.work(x3, w3, c3, out_dtype)):
+        if x.device.type == "cpu":
+            y = kernel.matmul_plain(x3, w3, c3, out_dtype)
+        else:
+            y = _TileMatmul.apply(x3, w3, c3, out_dtype, block)
     if w.dim() == 2:
         return y.reshape(*lead, n)
     return y.reshape(p, *lead, n)

@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs import (
     TrainConfig,
     apply_overrides,
+    config_summary,
     get_config,
     get_smoke_config,
 )
@@ -45,20 +46,12 @@ from repro_torch.data.pipeline import DataLoader, SyntheticLM
 from repro_torch.models.common import resolve_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import NullTracer, Tracer
-from repro_torch.train import optimizer as opt
 from repro_torch.train import step as step_lib
 from repro_torch.train.checkpoint import (
     CheckpointManager,
     install_preemption_hook,
 )
 from repro_torch.train.metrics import MetricLogger, StepTimer
-
-
-def config_summary(cfg, params) -> str:
-    n = sum(t.numel() for t in opt.tree_leaves(params))
-    return (f"{cfg.name} [{cfg.family}] {n / 1e6:.2f}M params\n"
-            f"  L={cfg.num_layers} d={cfg.d_model} H={cfg.num_heads} "
-            f"kv={cfg.num_kv_heads} ff={cfg.d_ff} vocab={cfg.vocab_size}")
 
 
 def main(argv=None):
@@ -101,7 +94,7 @@ def main(argv=None):
         n_pe = 0 if cfg.family == "ssm" else 4
     train_step = step_lib.make_train_step(cfg, tcfg, n_pe)
     state = step_lib.init_state(cfg, tcfg, tcfg.seed, dev)
-    print(config_summary(cfg, state["params"]))
+    print(config_summary(cfg))
 
     ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints,
                              async_save=tcfg.async_checkpoint)

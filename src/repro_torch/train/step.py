@@ -1,11 +1,17 @@
-"""Train step builder: the function the launcher calls once per step.
+"""Train and serve step builders: the functions the launchers call once
+per step, and the shape helpers of the dry run.
 
-Mirrors ``repro/train/step.py``'s training half. There is no mesh on one
-card: the model's systolic paths run on an emulated ring of ``n_pe`` PEs
+Mirrors ``repro/train/step.py``. There is no mesh on one card: the
+model's systolic paths run on an emulated ring of ``n_pe`` PEs
 (``build_model(cfg, n_pe)``), and its ring hops launch the CUDA kernels.
-The reference's sharded-shape helpers (``state_shapes``, ``batch_shapes``,
-``cache_shapes``, ``params_shapes``) serve its multi-pod dry run and have
-no one-card counterpart.
+``make_prefill_step`` and ``make_serve_step`` are the steps of the
+reference's prefill and decode cells. The shape helpers
+(``params_shapes``, ``state_shapes``, ``batch_shapes``, ``cache_shapes``)
+build their trees as ``FakeTensor``s on the requested device (shapes,
+types, no allocation), under the dry run's ``FakeTensorMode`` when one is
+active; where the reference returns logical axes they return
+``input_specs``' and ``cache_axes()``. Parameter axes have no counterpart:
+they only place tensors on a mesh.
 
 Distributed-optimization features, all config-driven as in the reference:
   * microbatch gradient accumulation with fp32 accumulators,
@@ -17,12 +23,16 @@ Distributed-optimization features, all config-driven as in the reference:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models import build_model
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.kernels._build import fake_mode_active
+from repro_torch.models import build_model, input_specs
+from repro_torch.roofline import count
 from repro_torch.train import optimizer as opt
 
 
@@ -94,9 +104,94 @@ def _accumulated_grads(model, params, batch, tcfg: TrainConfig):
     loss_acc = torch.zeros((), dtype=torch.float32,
                            device=opt.tree_leaves(params)[0].device)
     metrics = {}
-    for i in range(k):
+    for i in count.trips(k):
         mb = {name: micro(x, i) for name, x in batch.items()}
         loss, metrics, g = value_and_grad(model, params, mb)
         grads = opt.tree_map(lambda a, gi: a + gi.float() / k, grads, g)
         loss_acc = loss_acc + loss / k
     return grads, (loss_acc, metrics)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ModelConfig, n_pe: int = 0) -> Callable:
+    """``prefill_step(params, batch) -> last-position logits [B, V]``:
+    ``batch`` holds ``tokens`` [B,S] (and ``frames`` in the encdec family,
+    optionally ``patch_embeds`` in the vlm family), as ``input_specs``
+    describes it."""
+    model = build_model(cfg, n_pe=n_pe)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        if cfg.family == "encdec":
+            return model.prefill(params, batch)
+        if cfg.family == "vlm":
+            return model.prefill(params, batch["tokens"],
+                                 batch.get("patch_embeds"))
+        return model.prefill(params, batch["tokens"])
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, n_pe: int = 0) -> Callable:
+    """One decode token against the cache (the decode cells):
+    ``serve_step(params, cache, tokens [B,1], active [B]) -> (logits,
+    cache)``, with the continuous-batching ``active`` row mask the serving
+    engine drives."""
+    model = build_model(cfg, n_pe=n_pe)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, active):
+        return model.decode_step(params, cache, tokens, active)
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Shapes (the dry run)
+# ---------------------------------------------------------------------------
+
+
+def _fake():
+    """The dry run's active ``FakeTensorMode``, or a new one."""
+    return contextlib.nullcontext() if fake_mode_active() \
+        else FakeTensorMode()
+
+
+def _to(tree, device):
+    return opt.tree_map(lambda t: t.to(device), tree)
+
+
+def params_shapes(cfg: ModelConfig, device="cuda"):
+    """The parameter tree as fake tensors on ``device``. The tree is built
+    on the CPU (a ``cuda`` generator needs the card) and moved: a fake
+    move allocates nothing."""
+    with _fake():
+        return _to(build_model(cfg).init(seed=0, device="cpu"), device)
+
+
+def state_shapes(cfg: ModelConfig, tcfg: TrainConfig, device="cuda"):
+    """The train state (parameters and optimizer state) as fake tensors on
+    ``device``."""
+    with _fake():
+        return _to(init_state(cfg, tcfg, device="cpu"), device)
+
+
+def batch_shapes(cfg: ModelConfig, shape: ShapeConfig, device="cuda"):
+    """(the cell's inputs as fake tensors on ``device``, their logical
+    axes)."""
+    with _fake():
+        return input_specs(cfg, shape, device=torch.device(device))
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig, device="cuda"):
+    """(the decode cache of ``global_batch`` rows and ``seq_len``
+    positions as fake tensors on ``device``, its ``cache_axes()``)."""
+    model = build_model(cfg)
+    with _fake():
+        cache = _to(model.init_cache(shape.global_batch, shape.seq_len,
+                                     device="cpu"), device)
+    return cache, model.cache_axes()

@@ -104,7 +104,8 @@ def test_port_imports_no_jax():
         "import repro_torch.core.halo, repro_torch.core.fft\n"
         "import repro_torch.configs.mempool_dsp, repro_torch.kernels.fft.ops\n"
         "import repro_torch.models.moe, repro_torch.core.ring_moe\n"
-        "import repro_torch.autotune\n"
+        "import repro_torch.autotune, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.perf, repro_torch.roofline.analysis\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n" % str(SRC))
