@@ -24,7 +24,10 @@ non-zero before the result lines are printed:
    beside its twin, its bound and, where one PyTorch call computes the
    same function, that call (used here as a yardstick only); at the
    training hops also the device time of the backward (the twin's
-   gradient, as the reference's custom VJPs take it);
+   gradient, as the reference's custom VJPs take it); each flash hop
+   names the kernel body the profiler saw, and a bf16 hop with more than
+   one query at head_dim 64 or 128 fails unless it ran the tensor-core
+   body of its width;
 3. serving: ``ServeEngine`` over ``RingShardedBackend(n_pe=4, mode="qlr")``,
    whose ring hops run the kernels, qwen3-0.6b at full width in bf16 with
    random weights from a seed, 8 requests plus 4 admitted mid-run; every kernel's
@@ -233,6 +236,8 @@ MOE_BATCH, MOE_SEQ = 2, 8192       # phase 11: mixtral prefill, 2 x 8192
 MOE_LAYERS = 4                     # of 56, at full width
 MOE_WINDOW = 4096                  # mixtral's sliding window
 ZAMBA_BATCH, ZAMBA_SEQ = 4, 2048   # phase 12: zamba2 prefill and training
+ZAMBA_SERVE_SEQ = 64               # phase 12 (d): zamba2's serving slots
+ZAMBA_WINDOW = 768                 # phase 2: a window at zamba2's hop
 GRANITE_BATCH = 2                  # phase 12 (g): granite 2 x 2048 prefill
 GRANITE_LAYERS = 4                 # of 88, at full width
 Q14_D, Q14_FF = 5120, 17408        # qwen3-14b's widths (phase 12 (e))
@@ -319,11 +324,34 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
     return ms
 
 
+def profiled_bodies(fn, only: str, attempts: int = 5) -> str | None:
+    """The kernel bodies (``demangled_body``) whose names contain ``only``
+    that the profiler records for one call of ``fn``, joined by ", "; None
+    when ``attempts`` sessions record none."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {demangled_body(name)
+                 for name, _, _ in _kernel_rows(prof.key_averages())
+                 if only in name}
+        if names:
+            return ", ".join(sorted(names))
+    return None
+
+
 def demangled_body(name: str) -> str:
-    """``<identifier><template arguments>`` of a mangled kernel name: the
-    length-prefixed identifier that names a kernel, and what follows it
-    up to the return type."""
+    """``<identifier><template arguments>`` of a kernel name: of a mangled
+    one (``nvcc``'s log) the length-prefixed identifier that names a
+    kernel, and what follows it up to the return type; of a demangled one
+    (the profiler's) the identifier and its ``<...>``."""
     import re
+    plain = re.search(r"(\w*kernel\w*)(<[^()]*>)?\(", name)
+    if plain:
+        return plain.group(1) + (plain.group(2) or "")
     found = []
     for i in range(len(name)):
         m = re.match(r"\d+", name[i:])
@@ -506,12 +534,15 @@ def flash_cases(torch, fk, dev):
                   out_dtype=bf))
     # phase 12: hop 1 of zamba2-1.2b's prefill (4 x 2048 on the ring of 4:
     # 16 rows of PE x batch, 512 queries and keys, 32 heads, MHA, head_dim
-    # 64, so the CUDA-core body) and of granite-34b's (2 x 2048: 8 rows,
-    # 48 heads over one KV head, a GQA group of 48, head_dim 128)
-    for name, (bsz, qh, kh, d) in {"zamba_prefill_hop": (ZAMBA_BATCH, 32, 32,
-                                                          64),
-                                   "granite_gqa48_hop": (GRANITE_BATCH, 48, 1,
-                                                         128)}.items():
+    # 64) and of granite-34b's (2 x 2048: 8 rows, 48 heads over one KV
+    # head, a GQA group of 48, head_dim 128); zamba2's hop again under a
+    # window of ZAMBA_WINDOW (zamba2 has none: the window's tile skip and
+    # masks at head_dim 64), which cuts diagonally through the block
+    for name, (bsz, qh, kh, d, win) in {
+            "zamba_prefill_hop": (ZAMBA_BATCH, 32, 32, 64, 0),
+            "granite_gqa48_hop": (GRANITE_BATCH, 48, 1, 128, 0),
+            "zamba_window_hop": (ZAMBA_BATCH, 32, 32, 64,
+                                 ZAMBA_WINDOW)}.items():
         rows, s_l = N_PE * bsz, ZAMBA_SEQ // N_PE
         pe_z = torch.arange(N_PE, device=dev).repeat_interleave(bsz)
         qz = torch.randn(rows, s_l, qh, d, generator=g, device=dev).to(bf)
@@ -523,12 +554,12 @@ def flash_cases(torch, fk, dev):
             args=(qz, kz, vz, mz, lz, accz, pe_z * s_l,
                   (pe_z - 1) % N_PE * s_l,
                   torch.tensor(2 ** 30, device=dev).expand(rows), None),
-            opts=dict(causal=True, window=0, normalize=False))
+            opts=dict(causal=True, window=win, normalize=False))
     # phase 13: hop 1 of internvl2-1b's prefill (4 x 2048 on the ring of 2:
     # 8 rows of PE x batch, 1024 queries and keys, 14 heads over 2 KV
     # heads, a GQA group of 7) and of whisper-tiny's decoder (16 x 448 on
     # the ring of 2: 32 rows, 224 queries and keys, 6 heads, MHA), both at
-    # head_dim 64 (the CUDA-core body); then, for SDPA's yardstick, every
+    # head_dim 64; then, for SDPA's yardstick, every
     # head_dim-64 and GQA-48 hop's normalized form folded from zero state
     # on aligned positions (the causal diagonal block)
     hops = {"zamba_prefill": (N_PE, ZAMBA_BATCH, ZAMBA_SEQ, 32, 32, 64),
@@ -554,6 +585,32 @@ def flash_cases(torch, fk, dev):
             args=(qh_, kh_, vh_, *state(rows, s_l, fresh=True, h=qh, d=d),
                   0 * pe_h, 0 * pe_h, big_h, None),
             opts=dict(causal=True, window=0, normalize=True, out_dtype=bf))
+    # ring decode hops at head_dim 64, fp32 queries against the bf16 cache
+    # (the key-split body): zamba2's serving run of phase 12 (d) (8 slots of
+    # 64 on the ring of 4: q [8,1,32,64], the cache [8,64,32,64] viewed as
+    # [32,16,32,64]) and internvl2's of phase 13 (a) (8 slots of MAX_SEQ on
+    # the ring of 2: q [8,1,14,64], the cache viewed as [16,512,2,64])
+    for name, (n, seq, qh, kh) in {
+            "zamba_decode_hop": (N_PE, ZAMBA_SERVE_SEQ, 32, 32),
+            "vlm_decode_hop": (VLM_NPE, MAX_SEQ, 14, 2)}.items():
+        b_loc, s_loc = BATCH // n, seq // n
+        kc = torch.randn(BATCH, seq, kh, 64, generator=g,
+                         device=dev).to(bf)
+        vc = torch.randn(BATCH, seq, kh, 64, generator=g,
+                         device=dev).to(bf)
+        pos = torch.randint(seq // 4, seq, (BATCH,), generator=g, device=dev)
+        dpe = torch.arange(n, device=dev).repeat_interleave(b_loc)
+        cache_row = (dpe - 1) % n * b_loc \
+            + torch.arange(b_loc, device=dev).repeat(n)
+        md, ld, accd = state(BATCH, 1, fresh=False, h=qh, d=64)
+        md[::2] = -1e30
+        cases[name] = dict(
+            args=(torch.randn(BATCH, 1, qh, 64, generator=g, device=dev),
+                  kc.view(BATCH * n, s_loc, kh, 64),
+                  vc.view(BATCH * n, s_loc, kh, 64), md, ld, accd,
+                  0 * dpe, dpe * s_loc, pos[cache_row] + 1,
+                  cache_row * n + dpe),
+            opts=dict(causal=False, window=0, normalize=False))
     return cases
 
 
@@ -657,9 +714,19 @@ def check_flash(torch, fk, dev):
                 torch, lambda *a: fk._FlashCarry.apply(
                     *a, opts["causal"], opts["window"], False, None),
                 args, range(6))
+        launch = lambda: fk.flash_carry_cuda(*args, **opts)  # noqa: E731
+        body = profiled_bodies(launch, "flash_carry_kernel")
+        q, k = args[0], args[1]
+        d = q.shape[-1]
+        if q.dtype == k.dtype == torch.bfloat16 and q.shape[1] > 1 \
+                and d in (64, 128):
+            # the tensor-core body, and no other, at its widths; a hop whose
+            # body no profiler session recorded fails too
+            ok = ok and body is not None \
+                and body.startswith(f"flash_carry_kernel_mma<{d},") \
+                and "simt" not in body
         rec = {"case": name, "max_abs_err": err, "tol": tol, "ok": ok,
-               "ms": time_ms(lambda: fk.flash_carry_cuda(*args, **opts),
-                             only="flash_carry_kernel"),
+               "body": body, "ms": time_ms(launch, only="flash_carry_kernel"),
                "plain_ms": time_ms(lambda: fk.flash_carry_plain(*args,
                                                                  **opts),
                                    iters=3 if name.startswith("moe")
@@ -669,7 +736,7 @@ def check_flash(torch, fk, dev):
                "shape": {"q": list(args[0].shape), "k": list(args[1].shape),
                          "dtype_q": str(args[0].dtype),
                          "dtype_kv": str(args[1].dtype)}}
-        log(f"[kernels] flash_carry {name}: max_abs_err={err:.3e} "
+        log(f"[kernels] flash_carry {name}: {body} max_abs_err={err:.3e} "
             f"(tol {tol}) kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"library {lib}, twin backward {bwd}" + ratio_text(rec))
@@ -2466,7 +2533,8 @@ def zamba_serve(torch, kernels, cfg, params, dev):
     differ only at near-ties: bf16 activations through 38 layers of random
     weights leave the top logits close together."""
     from repro_torch.configs import ServeConfig
-    scfg = ServeConfig(max_batch=BATCH, max_seq_len=64, prefill_chunk=CHUNK)
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=ZAMBA_SERVE_SEQ,
+                       prefill_chunk=CHUNK)
     prompts = launcher_prompts(cfg, LAUNCH_REQUESTS + ZAMBA_LATE)
     stats, sampled, same, gaps = serve_lockstep(
         torch, kernels, cfg, scfg, params, dev, prompts[:LAUNCH_REQUESTS],
@@ -2499,7 +2567,8 @@ def zamba_serve_fp32(torch, kernels, dev):
     cfg = replace(full, num_layers=2 * full.attn_every + 1, n_shared_attn=2,
                   dtype="float32", param_dtype="float32")
     params = build_model(cfg).init(seed=1, device=dev)
-    scfg = ServeConfig(max_batch=BATCH, max_seq_len=64, prefill_chunk=CHUNK)
+    scfg = ServeConfig(max_batch=BATCH, max_seq_len=ZAMBA_SERVE_SEQ,
+                       prefill_chunk=CHUNK)
     prompts = launcher_prompts(cfg, LAUNCH_REQUESTS + ZAMBA_LATE)
     stats, sampled, same, gaps = serve_lockstep(
         torch, kernels, cfg, scfg, params, dev, prompts[:LAUNCH_REQUESTS],

@@ -34,11 +34,12 @@
 // of its bytes are the carried fp32 acc (16.8 MB in, 16.8 MB out): it is
 // bound by bytes (~15 us). A decode hop (Sq = 1) does ~1 operation per K/V
 // byte: bound by the bytes of the live cache slots (< 1 us), in practice by
-// the latency of reading them. Two bodies, chosen by dtype and Sq:
+// the latency of reading them. Two bodies, chosen by dtype, Sq and D:
 //
-// * bf16 q and K/V with Sq > 1 and D = 128 (prefill): tensor cores. One
-//   block of four warps per (row b', KV head, 64 flattened query rows), so
-//   each K/V tile is read once per 64 rows; each warp owns 16 rows. Q K^T and P V run on
+// * bf16 q and K/V with Sq > 1 and D = 64 or 128 (prefill and training
+//   hops): tensor cores. One block of four warps per (row b', KV head, 64
+//   flattened query rows), so each K/V tile is read once per 64 rows; each
+//   warp owns 16 rows. Q K^T and P V run on
 //   mma.sync.m16n8k16 (bf16 operands, fp32 accumulation); K/V tiles of 64
 //   keys come through cp.async double buffering into padded shared memory
 //   read by ldmatrix (.trans for V). The softmax state and acc stay in
@@ -47,8 +48,22 @@
 //   warp access fills whole 32-byte sectors. P is split into two bf16
 //   halves, P = P_hi + P_lo, and both go through the P V mma: the
 //   reference sums P V in fp32, and one bf16 rounding of P alone would put
-//   an error of ~2^-9 of |acc| into the carried state.
-// * everything else: Sq = 1, any fp32 operand, D < 128 (decode, fp32
+//   an error of ~2^-9 of |acc| into the carried state. The split costs a
+//   third mma per pair: zamba2-1.2b's hop (q [16,512,32,64]) counts 34.4
+//   GFLOP at every pair, 51.5 with the split, so at D = 64 the mma work,
+//   not the hop's 0.0664 ms of bytes, sets what this body can reach.
+//   At D = 64 the same tile carries half the mma work per score, so the
+//   softmax's per-score instructions weigh twice as much: a tile whose
+//   keys are live for every row of the block skips the mask (its max taken
+//   on the raw products), exp runs as one FMA and ex2.approx
+//   (2^(x*scale*log2 e - m*log2 e), relative error ~2^-22 against the
+//   2e-4 bound), and acc is rescaled only when some row of the warp found
+//   a new max (the factor is then exactly 1 everywhere else). These paths
+//   are compiled out at D = 128, whose arithmetic is the first body's.
+//   Two 16-row groups a warp (128 rows a block, each K/V fragment feeding
+//   both) and a third cp.async stage were tried at D = 64: 255 registers
+//   with spills, and no faster.
+// * everything else: Sq = 1, any fp32 operand, other D (decode, fp32
 //   paths, small test models): fp32 FMAs on the CUDA cores, the key range
 //   split across the block's warps so that all of a block's K/V loads are
 //   in flight at once; each warp folds its 32-key
@@ -62,7 +77,12 @@
 // [32,256,8,128] bf16 cache view) 0.0148 against a 0.0006 bound: 64
 // blocks on 132 SMs, each with three dependent rounds of memory reads (q,
 // K/V, carried state) around its per-key work (not broken down further).
-// The first port took 0.174, 0.178 and 0.032 ms.
+// The first port took 0.174, 0.178 and 0.032 ms. At D = 64 (the same card
+// and power limit): zamba2-1.2b's prefill hop (q [16,512,32,64], causal
+// hop 1) 0.2330 ms against a 0.0664 ms bound, internvl2-1b's GQA-7 hop (q
+// [8,1024,14,64]) 0.1792 against 0.0231, whisper-tiny's decoder hop (q
+// [32,224,6,64]) 0.0329 against 0.0101; normalized from zero state 2.73x,
+// 2.91x and 2.08x SDPA. The CUDA-core body took 8.5361, 5.9633 and 0.6883.
 //
 // dtype codes: 0 = float32, 1 = bfloat16.
 #include <cuda_runtime.h>
@@ -168,6 +188,7 @@ struct Args {
 // ---------------------------------------------------------------------------
 
 constexpr int TC_ROWS = 64, TC_KEYS = 64, TC_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct TcTile {
@@ -207,9 +228,29 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
+// 2^x on the special-function unit (relative error ~2^-22; results below
+// 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Whether keys k_off + [t0, t0 + TC_KEYS) all lie in the block and are live
+// for every query position in [qpos_min, qpos_max]: the tile needs no mask.
+__device__ __forceinline__ bool tile_live(int t0, int T, int ko, int kl, int qpos_min,
+                                          int qpos_max, int causal, int window) {
+  const long long lo = (long long)ko + t0, hi = lo + TC_KEYS - 1;
+  return t0 + TC_KEYS <= T && hi < kl && (!causal || hi <= qpos_min) &&
+         (window <= 0 || qpos_max - lo < window);
+}
+
 template <int D, typename TO>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_carry_kernel_mma(const Args a) {
+  // the head_dim-64 softmax (see the header): unmasked live tiles, exp2,
+  // acc rescaled only on a new max
+  constexpr bool FAST = D == 64;
   using Tile = TcTile<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -333,36 +374,67 @@ flash_carry_kernel_mma(const Args a) {
       }
     }
 
-    // mask, online softmax; the 4 lanes of a quad share a row
+    // mask, online softmax; the 4 lanes of a quad share a row. A tile live
+    // for every row keeps the raw products here: max(round(x * scale)) ==
+    // round(max(x) * scale) for scale > 0, so the max comes out the same.
+    const bool live = FAST && tile_live(cur, T, ko, kl, qpos_min, qpos_max, a.causal,
+                                        a.window);
     float mx[2] = {-INFINITY, -INFINITY};
+    if (live) {
 #pragma unroll
-    for (int j = 0; j < TC_KEYS / 8; ++j) {
+      for (int j = 0; j < TC_KEYS / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = i >> 1, key = cur + j * 8 + (lane & 3) * 2 + (i & 1);
-        float s = -INFINITY;                    // past the block: weight exactly 0
-        if (key < T)
-          s = key_ok(ko + key, qp[e], kl, a.causal, a.window) ? sc[j][i] * a.scale : NEG;
-        sc[j][i] = s;
-        mx[e] = fmaxf(mx[e], s);
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], sc[j][i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TC_KEYS / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i >> 1, key = cur + j * 8 + (lane & 3) * 2 + (i & 1);
+          float s = -INFINITY;                  // past the block: weight exactly 0
+          if (key < T)
+            s = key_ok(ko + key, qp[e], kl, a.causal, a.window) ? sc[j][i] * a.scale : NEG;
+          sc[j][i] = s;
+          mx[e] = fmaxf(mx[e], s);
+        }
       }
     }
-    float corr[2], sum[2] = {0.f, 0.f};
+    float corr[2], sum[2] = {0.f, 0.f}, mb[2];
+    bool grew = false;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       mx[e] = fmaxf(mx[e], __shfl_xor_sync(FULL, mx[e], 1));
       mx[e] = fmaxf(mx[e], __shfl_xor_sync(FULL, mx[e], 2));
+      if (live) mx[e] *= a.scale;
       const float m_new = fmaxf(m_r[e], mx[e]);
       corr[e] = expf(m_r[e] - m_new);
+      grew = grew || corr[e] != 1.f;
       m_r[e] = m_new;
+      mb[e] = m_new * LOG2E;
     }
+    if (FAST) {
+      // exp(s - m) as 2^(x * scale * log2 e - m * log2 e) on a live tile (one
+      // FMA), 2^((s - m) * log2 e) where the sentinel may meet itself
+      const float sl2 = a.scale * LOG2E;
 #pragma unroll
-    for (int j = 0; j < TC_KEYS / 8; ++j) {
+      for (int j = 0; j < TC_KEYS / 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int e = i >> 1;
-        sc[j][i] = expf(sc[j][i] - m_r[e]);
-        sum[e] += sc[j][i];
+        for (int i = 0; i < 4; ++i) {
+          const int e = i >> 1;
+          const float x = sc[j][i];
+          sc[j][i] = live ? ex2(fmaf(x, sl2, -mb[e])) : ex2((x - m_r[e]) * LOG2E);
+          sum[e] += sc[j][i];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < TC_KEYS / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i >> 1;
+          sc[j][i] = expf(sc[j][i] - m_r[e]);
+          sum[e] += sc[j][i];
+        }
       }
     }
 #pragma unroll
@@ -371,12 +443,16 @@ flash_carry_kernel_mma(const Args a) {
       sum[e] += __shfl_xor_sync(FULL, sum[e], 2);
       l_r[e] = l_r[e] * corr[e] + sum[e];
     }
+    // acc *= corr; at D = 64 skipped (exactly: every factor is 1) when no row
+    // of the warp found a new max
+    if (!FAST || __any_sync(FULL, grew)) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= corr[0];
+        o[j][1] *= corr[0];
+        o[j][2] *= corr[1];
+        o[j][3] *= corr[1];
+      }
     }
 
     // acc += (P_hi + P_lo) V, 16 keys per step
@@ -705,12 +781,15 @@ extern "C" int flash_carry(
                Kv, Sq, D, causal, window, normalize, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == 1 && kv_dtype == 1 && Sq > 1 && D == DMAX) {
+  if (q_dtype == 1 && kv_dtype == 1 && Sq > 1 && (D == 64 || D == 128)) {
     // the tensor-core body reads q as bf16 pairs and acc / o as 4-vectors
     if (q_sb % 2 || q_ss % 2 || q_sh % 2 || reinterpret_cast<uintptr_t>(q) % 4 ||
         reinterpret_cast<uintptr_t>(acc_in) % 16 || reinterpret_cast<uintptr_t>(o_out) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
-    err = o_dtype == 0 ? launch_mma<DMAX, float>(a, s) : launch_mma<DMAX, __nv_bfloat16>(a, s);
+    if (D == 64)
+      err = o_dtype == 0 ? launch_mma<64, float>(a, s) : launch_mma<64, __nv_bfloat16>(a, s);
+    else
+      err = o_dtype == 0 ? launch_mma<128, float>(a, s) : launch_mma<128, __nv_bfloat16>(a, s);
   } else {
     err = q_dtype == 0 ? dispatch_kv<float>(a, kv_dtype, o_dtype, s)
                        : dispatch_kv<__nv_bfloat16>(a, kv_dtype, o_dtype, s);

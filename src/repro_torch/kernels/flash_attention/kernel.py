@@ -20,6 +20,13 @@ finite sentinel -1e30, as the reference does. With ``normalize`` the third
 output is ``acc / max(l, 1e-30)`` in ``out_dtype`` instead of ``acc``.
 Tensors on the CPU take the plain twin; CUDA tensors launch the kernel or
 raise.
+
+The kernel has two bodies. bf16 q and K/V with more than one query at
+head_dim 64 or 128 (the ring prefill and training hops) take the
+tensor-core body (``mma.sync``; at head_dim 64 with an unmasked path for
+tiles every row sees and exp2 on the special-function unit); everything
+else (decode's single query, any fp32 operand, other head dims up to
+``HEAD_DIM_MAX``) takes the key-split CUDA-core body.
 """
 from __future__ import annotations
 
@@ -120,7 +127,9 @@ def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
 def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
                      *, causal: bool, window: int = 0,
                      normalize: bool = False, out_dtype=None):
-    """One launch of the CUDA flash-carry kernel."""
+    """One launch of the CUDA flash-carry kernel: the tensor-core body for
+    bf16 q and K/V with Sq > 1 at head_dim 64 or 128, the key-split
+    CUDA-core body otherwise (see the module docstring)."""
     require_cuda_tensors("flash_carry", q, k, v, m, l, acc, q_off, k_off,
                          klen, kv_row)
     bp, sq, h, d = q.shape

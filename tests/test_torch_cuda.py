@@ -904,37 +904,78 @@ def test_cuda_ring_moe_smoke_modes_bit_identical(cuda, name):
 # ---------------------------------------------------------------------------
 
 
+# head_dim-64 hops: (ring size, batch, queries a PE, heads, KV heads, hop,
+# window, state): "carried" every third row at the sentinel, "real" every
+# row holding a real running max, "fresh" zero state normalized
+HD64_HOPS = {
+    "internvl2_gqa7": (2, 4, 256, 14, 2, 1, 0, "carried"),
+    "whisper_mha6": (2, 4, 256, 6, 6, 1, 0, "carried"),
+    "zamba2_mha32": (4, 2, 512, 32, 32, 1, 0, "carried"),
+    "windowed": (2, 4, 256, 14, 2, 0, 100, "carried"),
+    "normalized": (2, 2, 224, 14, 2, 0, 0, "fresh"),
+    "resolved": (2, 4, 224, 6, 6, 1, 0, "real"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["internvl2_gqa7", "whisper_mha6"])
+@pytest.mark.parametrize("shape", list(HD64_HOPS))
 def test_cuda_flash_carry_head_dim64_hops(cuda, shape):
-    """Hop 1 of the ring-attention prefill hops of the VLM and Whisper
-    families at head_dim 64 (the CUDA-core body), sequence cut to 256 a
-    PE: internvl2-1b's 14 heads over 2 KV heads (a GQA group of 7) and
-    whisper-tiny's decoder, 6 heads (MHA). The state within 2e-4 of its
-    scale, as phase 2 of chip_smoke.py holds it."""
+    """Ring-attention prefill hops at head_dim 64 on the tensor-core body
+    (bf16, 64 query rows a block), sequence cut to 224-512 a PE:
+    internvl2-1b's 14 heads over 2 KV heads (a GQA group of 7),
+    whisper-tiny's decoder (6 heads, MHA) and zamba2-1.2b's shared
+    attention (32 heads, MHA, ring of 4), all at hop 1; the causal
+    diagonal hop under a window of 100 that cuts K/V tiles (tiles behind
+    it skipped, others masked or live); the normalized form from zero
+    state at 224 queries (the last K/V tile half full, row blocks across
+    GQA groups), also within 2e-2 of SDPA; and a hop where every row holds
+    a real max, so PE 0's tiles (all keys ahead of its queries) are
+    skipped and its state comes back bit for bit. The state within 2e-4 of
+    its scale, as phase 2 of chip_smoke.py holds it; the normalized output
+    within 2e-2."""
+    import torch.nn.functional as F
+    n, b, s_l, h, kvh, hop, window, state = HD64_HOPS[shape]
     g = torch.Generator(device=cuda).manual_seed(3)
-    n, b, s_l, hd = 2, 4, 256, 64
-    h, kvh = (14, 2) if shape == "internvl2_gqa7" else (6, 6)
+    hd = 64
     pe = torch.arange(n, device=cuda).repeat_interleave(b)
     bf = torch.bfloat16
     q = torch.randn(n * b, s_l, h, hd, generator=g, device=cuda).to(bf)
     k = torch.randn(n * b, s_l, kvh, hd, generator=g, device=cuda).to(bf)
     v = torch.randn(n * b, s_l, kvh, hd, generator=g, device=cuda).to(bf)
-    m = torch.randn(n * b, h, s_l, generator=g, device=cuda)
-    m[::3] = -1e30
-    l = torch.rand(n * b, h, s_l, generator=g, device=cuda) + 1
-    acc = torch.randn(n * b, h, s_l, hd, generator=g, device=cuda)
+    if state == "fresh":
+        m = torch.full((n * b, h, s_l), -1e30, device=cuda)
+        l = torch.zeros(n * b, h, s_l, device=cuda)
+        acc = torch.zeros(n * b, h, s_l, hd, device=cuda)
+    else:
+        m = torch.randn(n * b, h, s_l, generator=g, device=cuda)
+        if state == "carried":
+            m[::3] = -1e30
+        l = torch.rand(n * b, h, s_l, generator=g, device=cuda) + 1
+        acc = torch.randn(n * b, h, s_l, hd, generator=g, device=cuda)
     big = torch.full((n * b,), 2 ** 30, device=cuda)
-    args = (q, k, v, m, l, acc, pe * s_l, (pe - 1) % n * s_l, big, None)
-    opts = dict(causal=True, window=0, normalize=False)
+    args = (q, k, v, m, l, acc, pe * s_l, (pe - hop) % n * s_l, big, None)
+    opts = dict(causal=True, window=window, normalize=state == "fresh",
+                out_dtype=bf if state == "fresh" else None)
     before = fk.FLASH_CARRY.launches
     got = fk.flash_carry_cuda(*args, **opts)
     assert fk.FLASH_CARRY.launches == before + 1
     want = fk.flash_carry_plain(*args, **opts)
     torch.cuda.synchronize()
-    scale = max(1.0, float(want[2].abs().max()))
+    scale = max(1.0, float(want[2].float().abs().max()))
+    tol = 2e-2 if state == "fresh" else 2e-4
     for x, y in zip(got, want):
-        assert float((x - y).abs().max()) <= 2e-4 * scale
+        assert bool(torch.isfinite(x).all())
+        assert float((x.float() - y.float()).abs().max()) <= tol * scale
+    if state == "fresh":
+        assert got[2].dtype == bf
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt, vt = (x.repeat_interleave(h // kvh, 1) for x in (kt, vt))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        assert float((sdpa.float() - got[2].float()).abs().max()) <= 2e-2
+    if state == "real":
+        first = pe == 0
+        for x, y in zip(got, (m, l, acc)):
+            assert torch.equal(x[first], y[first])
 
 
 def _move(v, dev):

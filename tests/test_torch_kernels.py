@@ -45,30 +45,40 @@ def _close(got, want, tol=FLASH_TOL):
 
 
 FLASH_CASES = [
-    # (b, sq, t, h, kvh, causal, window, q_off, k_off, fresh)
-    pytest.param(2, 8, 12, 4, 2, True, 0, 12, 4, True, id="gqa-causal"),
-    pytest.param(2, 8, 12, 4, 2, True, 3, 12, 6, False, id="gqa-window"),
-    pytest.param(1, 6, 10, 2, 2, False, 0, 0, 0, False, id="mha-ragged"),
-    pytest.param(3, 4, 8, 4, 1, True, 0, 0, 20, True, id="fully-masked"),
+    # (b, sq, t, h, kvh, causal, window, q_off, k_off, fresh, hd, bkv)
+    pytest.param(2, 8, 12, 4, 2, True, 0, 12, 4, True, 8, 6, id="gqa-causal"),
+    pytest.param(2, 8, 12, 4, 2, True, 3, 12, 6, False, 8, 6,
+                 id="gqa-window"),
+    pytest.param(1, 6, 10, 2, 2, False, 0, 0, 0, False, 8, 5,
+                 id="mha-ragged"),
+    pytest.param(3, 4, 8, 4, 1, True, 0, 0, 20, True, 8, 4,
+                 id="fully-masked"),
+    # head_dim 64, the width of zamba2, internvl2 and whisper: a GQA group
+    # of 7 whose 40 keys the reference's 16-key block does not tile (it
+    # shrinks the block to 10), and MHA whose last 16 keys lie after every
+    # query (two fully masked reference blocks)
+    pytest.param(1, 16, 40, 14, 2, True, 0, 36, 4, False, 64, 16,
+                 id="hd64-gqa7-ragged"),
+    pytest.param(2, 8, 24, 4, 4, True, 0, 0, 0, False, 64, 8,
+                 id="hd64-mha-masked-tail"),
 ]
 
 
 @pytest.mark.parametrize(
-    "b,sq,t,h,kvh,causal,window,q_off,k_off,fresh", FLASH_CASES)
+    "b,sq,t,h,kvh,causal,window,q_off,k_off,fresh,hd,bkv", FLASH_CASES)
 def test_flash_hop_twin_vs_reference(ref, b, sq, t, h, kvh, causal, window,
-                                     q_off, k_off, fresh):
+                                     q_off, k_off, fresh, hd, bkv):
     """Port flash_hop (plain twin) == reference flash_hop (Pallas kernel
     in interpret mode, several KV blocks) == its jnp oracle."""
     from repro.kernels.flash_attention import ops as rops
     rng = np.random.default_rng(0)
-    hd = 8
     q, k, v = _rand(rng, b, sq, h, hd), _rand(rng, b, t, kvh, hd), \
         _rand(rng, b, t, kvh, hd)
     st = _state(rng, b, h, sq, hd, fresh)
     want = rops.flash_hop(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           tuple(map(jnp.asarray, st)), q_offset=q_off,
                           k_offset=k_off, causal=causal, window=window,
-                          bq=4, bkv=t // 2, interpret=True)
+                          bq=4, bkv=bkv, interpret=True)
     got = fops.flash_hop(to_torch(q), to_torch(k), to_torch(v),
                          tuple(map(to_torch, st)), q_offset=q_off,
                          k_offset=k_off, causal=causal, window=window)
