@@ -7,8 +7,9 @@ depth on the ring, run mixtral-8x22b's MoE family and the 2-D grid
 schedules at full width, prefill, train and serve zamba2-1.2b, serve
 qwen3-14b and prefill olmo-1b and granite-34b at full width, and run
 internvl2-1b, deepseek-v2-lite-16b and whisper-tiny at full width and
-depth, run the autotuner's sweeps and tuned paths on the card, and hold
-the dry run's counts (on fake tensors) against measured steps.
+depth, run the autotuner's sweeps and tuned paths on the card, hold
+the dry run's counts (on fake tensors) against measured steps, and run
+the four examples.
 
     python3 chip_smoke.py
 
@@ -198,7 +199,25 @@ non-zero before the result lines are printed:
    FLOPs over time x 989 TFLOP/s) and the roofline share (the count's
    bound over time), beside the card's name and power limit; phase 9's
    ``train_mfu`` beside the ``mfu`` of its step; all as one
-   ``[roofline]`` JSON line.
+   ``[roofline]`` JSON line;
+16. the examples (``repro_torch.examples``), each through its ``run``:
+   (a) quickstart on qwen3-0.6b at full width, bf16, qlr on the ring of
+   4: the loss finite and within 1.0 of ln V, one train step finite with
+   twice the loss's launches of both kernels (the forward and its remat
+   recompute), 5 greedy tokens; (b) serve_batched at full width, bf16,
+   ring of 4 in qlr, 10 requests in a slot batch of 4, with the example's
+   defaults (flash launches) and with block prefill of 16 tokens (both
+   kernels), tokens/s beside the card; then 4 layers in fp32: the ring's
+   greedy tokens equal the dense backend's but at an fp near-tie; (c)
+   systolic_topologies at the reference example's shapes on 8 PEs: the
+   ring matmul and the MoE within 1e-4 relative, ring attention and
+   conv2d within 1e-5, the FFT within 1e-5 relative, conv2d and the FFT
+   identical in every mode, each section launching its kernels, ``sw``
+   counting more ops than ``xqueue`` and ``qlr``; (d) train_lm
+   ``--full`` (olmo-1b at ~100M parameters, 16 x 512 tokens) cut to 20
+   steps, checkpointed every 10 and resumed to 30: losses finite and
+   falling from step 1 to 20, the resumed run starting at step 20;
+   median step ms, tokens/s and peak memory.
 
 The last three lines of standard output are the kernels' JSON, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -3951,6 +3970,290 @@ def phase15(torch, kernels, dev, card, train):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLE_CHUNK = 16                 # (b): block prefill (the QKV ring's path)
+EXAMPLE_PARITY_LAYERS = 4          # (b): fp32, the ring against dense
+EXAMPLE_TRAIN = (20, 30)           # (d): steps of the cut run, then resumed
+TIE_GAP = 5e-3                     # tests/test_torch_serve.py's near-tie
+
+
+def launch_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def example_quickstart(torch, kernels, dev):
+    """(a) ``examples.quickstart.run`` at full width: qwen3-0.6b, bf16,
+    qlr on the ring of 4. The loss is finite and within 1.0 of ln V; the
+    train step's launches are the loss's times the forward passes (two
+    under remat "full": the forward and its recompute); 5 tokens decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart
+    cfg = replace(get_config("qwen3-0.6b"), systolic_mode="qlr")
+    marks = []
+
+    def stage(name):
+        torch.cuda.synchronize()
+        marks.append((name, launch_counts(kernels), time.perf_counter()))
+
+    out = quickstart.run(cfg, n_pe=N_PE, device=dev, on_stage=stage)
+    per_stage, seconds = {}, {}
+    for (name, c0, t0), (_, c1, t1) in zip(marks, marks[1:]):
+        per_stage[name] = {k: c1[k] - c0[k] for k in c0}
+        seconds[name] = t1 - t0
+    out.update(launches_per_stage=per_stage, seconds=seconds)
+    log(f"[examples] quickstart: {json.dumps(out)}")
+    assert np.isfinite(out["loss"]) and np.isfinite(out["step_loss"])
+    assert abs(out["loss"] - out["ln_vocab"]) <= 1.0, out["loss"]
+    passes = 1 if cfg.remat == "none" else 2
+    for k in kernels:
+        fwd = per_stage["loss"][k.name]
+        assert fwd > 0, f"{k.name} never launched in the quickstart's loss"
+        assert per_stage["train_step"][k.name] == passes * fwd, \
+            (k.name, per_stage)
+    assert len(out["tokens"]) == quickstart.DECODE_TOKENS
+    assert all(0 <= t < cfg.vocab_size for t in out["tokens"])
+    return out
+
+
+def sampled_gaps(torch):
+    """Patch ``ServeEngine._sample_and_commit`` to record, per request id,
+    the top-two logit gap at every token it samples; returns (gaps,
+    restore)."""
+    from repro_torch.serve.engine import ServeEngine
+    original = ServeEngine._sample_and_commit
+    gaps: dict = {}
+
+    def recording(self, logits, sampling):
+        top2 = logits.float().topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        for slot, req in enumerate(self.sched.slot_req):
+            if req is not None and sampling[slot]:
+                gaps.setdefault(req.rid, []).append(float(gap[slot]))
+        return original(self, logits, sampling)
+
+    ServeEngine._sample_and_commit = recording
+
+    def restore():
+        ServeEngine._sample_and_commit = original
+    return gaps, restore
+
+
+def example_serve(torch, kernels, dev, card):
+    """(b) ``examples.serve_batched.run`` at full width: qwen3-0.6b, bf16,
+    ring of 4 in qlr, 10 requests, slot batch 4, first with the example's
+    defaults (every prompt streams through the decode step: ring decode
+    attention's flash hops alone) and then with block prefill of
+    ``EXAMPLE_CHUNK`` tokens (the QKV ring's tile matmuls too). Then 4
+    layers in fp32 with block prefill: the ring's greedy tokens against
+    the dense backend's, equal but at an fp near-tie of dense's logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_batched
+    from repro_torch.models import build_model
+    cfg = get_config("qwen3-0.6b")
+    params = build_model(cfg).init(seed=0, device=dev)
+    out = {}
+    for name, chunk in (("default", 0), ("block_prefill", EXAMPLE_CHUNK)):
+        c0 = launch_counts(kernels)
+        res = serve_batched.run(cfg, ring=True, mode="qlr",
+                                prefill_chunk=chunk, n_pe=N_PE,
+                                params=params, device=dev)
+        torch.cuda.synchronize()
+        res["launches"] = {k: v - c0[k]
+                           for k, v in launch_counts(kernels).items()}
+        out[name] = res
+        log(f"[examples] serve_batched {name} (prefill chunk {chunk}): "
+            f"{res['done']}/{res['requests']} requests ({res['backend']}), "
+            f"{res['tokens']} tokens in {res['ticks']} ticks, "
+            f"{res['tok_per_s']:.2f} tok/s on {card}; launches "
+            f"{res['launches']}")
+        assert res["done"] == res["requests"] == 10, res
+    assert out["default"]["launches"]["flash_carry"] > 0
+    for k in kernels:
+        assert out["block_prefill"]["launches"][k.name] > 0, \
+            f"{k.name} never launched in serve_batched"
+    del params
+    torch.cuda.empty_cache()
+
+    cfg32 = replace(cfg, num_layers=EXAMPLE_PARITY_LAYERS, dtype="float32",
+                    param_dtype="float32")
+    params = build_model(cfg32).init(seed=0, device=dev)
+    gaps, restore = sampled_gaps(torch)
+    try:
+        dense = serve_batched.run(cfg32, prefill_chunk=EXAMPLE_CHUNK,
+                                  params=params, device=dev)
+        dense_gaps = dict(gaps)
+        gaps.clear()
+        ring = serve_batched.run(cfg32, ring=True, mode="qlr",
+                                 prefill_chunk=EXAMPLE_CHUNK, n_pe=N_PE,
+                                 params=params, device=dev)
+    finally:
+        restore()
+    want = {r["rid"]: r["tokens"] for r in dense["out"]}
+    ties, equal = [], 0
+    for r in ring["out"]:
+        for i, (a, b) in enumerate(zip(r["tokens"], want[r["rid"]])):
+            if a != b:
+                gap = dense_gaps[r["rid"]][i]
+                assert gap < TIE_GAP, (r["rid"], i, a, b, gap)
+                ties.append({"rid": r["rid"], "token": i, "gap": gap})
+                break
+        else:
+            equal += r["tokens"] == want[r["rid"]]
+    assert len(ties) <= 1, ties
+    assert dense["done"] == ring["done"] == 10
+    out["fp32_parity"] = {"layers": EXAMPLE_PARITY_LAYERS,
+                          "requests_equal": equal, "near_ties": ties,
+                          "min_gap": min(min(g) for g in dense_gaps.values())}
+    log(f"[examples] serve_batched fp32 ring against dense: "
+        f"{json.dumps(out['fp32_parity'])}")
+    for res in out.values():
+        res.pop("out", None)
+    return out
+
+
+def example_topologies(torch, kernels, dev):
+    """(c) ``examples.systolic_topologies.run`` at the reference example's
+    shapes on 8 PEs: each section within its bound in every mode, conv2d
+    and the FFT identical across modes, each section's kernels launched
+    (counted per call by ``roofline.count.Counter``), ``sw`` counting more
+    ops than ``xqueue`` and ``qlr`` in each ring section."""
+    from repro_torch.examples import systolic_topologies as st
+    c0 = launch_counts(kernels)
+    out = st.run(dev)
+    torch.cuda.synchronize()
+    launched = {k: v - c0[k] for k, v in launch_counts(kernels).items()}
+    bounds = {"matmul": ("rel_err", 1e-4, "tile_matmul"),
+              "attention": ("err", 1e-5, "flash_carry"),
+              "moe": ("rel_err", 1e-4, "tile_matmul"),
+              "conv2d": ("err", 1e-5, "conv2d_3x3"),
+              "fft": ("rel_err", 1e-5, "fft_stage")}
+    summary = {"topologies": out["topologies"]}
+    for section, (key, tol, kern) in bounds.items():
+        recs = out[section]
+        summary[section] = {m: {f: recs[m][f] for f in
+                                ("err", "rel_err", "ops", "launches")}
+                            for m in st.MODES}
+        for mode in st.MODES:
+            assert recs[mode][key] <= tol, (section, mode, recs[mode][key])
+            # the MoE's baseline is the dense dispatch, which launches none
+            if not (section == "moe" and mode == "baseline"):
+                assert recs[mode]["launches"].get(kern, 0) > 0, \
+                    (section, mode, recs[mode]["launches"])
+        if section in ("matmul", "attention", "moe"):
+            assert recs["sw"]["ops"] > recs["xqueue"]["ops"], section
+            assert recs["sw"]["ops"] > recs["qlr"]["ops"], section
+        else:
+            summary[section]["identical"] = recs["identical"]
+            assert recs["identical"], f"{section}: modes differ"
+    for k in kernels:
+        if k.name != "ssd_chunks":
+            assert launched[k.name] > 0, f"{k.name} never launched"
+    summary["launches"] = launched
+    log(f"[examples] systolic_topologies: {json.dumps(summary)}")
+    return summary
+
+
+def example_train(torch, kernels, dev):
+    """(d) ``examples.train_lm.run(full=True)``: olmo-1b cut to ~100M
+    parameters, 16 x 512 tokens a step, cut to ``EXAMPLE_TRAIN[0]`` steps
+    (checkpoint every 10) and resumed to ``EXAMPLE_TRAIN[1]``; checkpoints
+    and a per-step log under ``build/examples_train_lm/`` (deleted after).
+    Losses finite and falling from step 1 to the cut; the resumed run
+    starts at the cut. Step ms and tokens/s are medians past the first
+    step of the cut run."""
+    import shutil
+    import signal
+    from repro_torch.examples import train_lm
+    out = ROOT / "build" / "examples_train_lm"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cut, total = EXAMPLE_TRAIN
+    log_path = out / "log.jsonl"
+
+    def extra(steps):
+        return ["--steps", str(steps), "--train-set", "checkpoint_every=10",
+                "--ckpt-dir", str(out / "ckpt"), "--train-set",
+                "log_every=1", "--log", str(log_path)]
+
+    def logged():
+        return [json.loads(line) for line in
+                log_path.read_text().splitlines()]
+
+    handler = signal.getsignal(signal.SIGTERM)        # the launcher's hook
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        first = train_lm.run(full=True, device=str(dev), extra=extra(cut))
+        n_first = len(logged())
+        resumed = train_lm.run(full=True, resume=True, device=str(dev),
+                               extra=extra(total))
+    finally:
+        signal.signal(signal.SIGTERM, handler)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    recs = logged()
+    shutil.rmtree(out / "ckpt", ignore_errors=True)
+    losses = [r["loss"] for r in recs]
+    step_s = [r["step_s"] for r in recs[1:cut]]
+    argv = first["argv"]
+
+    def last(flag):
+        return int(argv[len(argv) - argv[::-1].index(flag)])
+    tokens = last("--batch") * last("--seq")
+    result = {"argv": argv, "resumed_argv": resumed["argv"],
+              "seconds": seconds, "losses": losses, "tokens_per_step": tokens,
+              "step_ms": float(np.median(step_s)) * 1e3,
+              "tokens_per_s": tokens / float(np.median(step_s)),
+              "peak_mem_gb": peak, "resumed_from": recs[n_first]["step"]}
+    log(f"[examples] train_lm --full: {json.dumps(result)}")
+    assert [r["step"] for r in recs] == list(range(total)), recs
+    assert n_first == cut and result["resumed_from"] == cut
+    assert int(resumed["state"]["opt"]["step"]) == total
+    assert all(np.isfinite(losses)), losses
+    assert losses[cut - 1] < losses[0], losses
+    return result
+
+
+def phase16(torch, kernels, dev, card):
+    """The four examples through their ``run`` functions, each path's
+    launches counted from zero just before it; returns {run: result} and
+    {path: launches}."""
+    fk_mm = [k for k in kernels if k.name in ("flash_carry", "tile_matmul")]
+    launches, out = {}, {}
+    t_phase = time.perf_counter()
+
+    def counted(name, fn):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        launches[name] = launch_counts(kernels)
+        log(f"[phase16] {name}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches[name]}")
+        return res
+
+    out["quickstart"] = counted(
+        "examples_quickstart", lambda: example_quickstart(torch, fk_mm, dev))
+    torch.cuda.empty_cache()
+    out["serve_batched"] = counted(
+        "examples_serve", lambda: example_serve(torch, fk_mm, dev, card))
+    torch.cuda.empty_cache()
+    out["systolic_topologies"] = counted(
+        "examples_topologies",
+        lambda: example_topologies(torch, kernels, dev))
+    out["train_lm"] = counted(
+        "examples_train", lambda: example_train(torch, kernels, dev))
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = card
+    log(f"[phase16] phase 16 {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4062,6 +4365,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     p15, p15_launches = phase15(torch, kernels.ALL, dev, card, train)
 
+    torch.cuda.empty_cache()
+    p16, p16_launches = phase16(torch, kernels.ALL, dev, card)
+
     def entry(kern, source, replaces, recs, primary):
         top = next(r for r in recs if r["case"] == primary)
         by_path = {"serve": served["launches"].get(kern.name, 0),
@@ -4086,7 +4392,9 @@ def main() -> int:
                    **{name: got.get(kern.name, 0)
                       for name, got in p14_launches.items()},
                    **{name: got.get(kern.name, 0)
-                      for name, got in p15_launches.items()}}
+                      for name, got in p15_launches.items()},
+                   **{name: got.get(kern.name, 0)
+                      for name, got in p16_launches.items()}}
         per_call = {c: v[kern.name] for c, v in
                     served["launches_per_call"].items() if kern.name in v}
         per_call.update({
@@ -4155,6 +4463,10 @@ def main() -> int:
         # phase 14: the tuned qwen3-0.6b prefill call
         per_call["autotune_tuned_prefill"] = \
             p14["tuned"]["prefill"]["launches"].get(kern.name, 0)
+        # phase 16: the quickstart's loss and its train step
+        for stage in ("loss", "train_step"):
+            per_call[f"examples_quickstart_{stage}"] = p16["quickstart"][
+                "launches_per_stage"][stage].get(kern.name, 0)
         return {"name": kern.name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(by_path.values()),
@@ -4185,7 +4497,7 @@ def main() -> int:
         "moe_prefill": mprefill, "moe_parity": mparity, "moe_train": mtrain,
         "moe_serve": moeserve, "grid_prefill": gprefill,
         "cannon_grid": cgrid, "phase12": p12, "phase13": p13,
-        "phase14": p14, "phase15": p15}
+        "phase14": p14, "phase15": p15, "phase16": p16}
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

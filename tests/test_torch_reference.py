@@ -106,6 +106,10 @@ def test_port_imports_no_jax():
         "import repro_torch.models.moe, repro_torch.core.ring_moe\n"
         "import repro_torch.autotune, repro_torch.launch.dryrun\n"
         "import repro_torch.launch.perf, repro_torch.roofline.analysis\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.serve_batched\n"
+        "import repro_torch.examples.systolic_topologies\n"
+        "import repro_torch.examples.train_lm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n" % str(SRC))
