@@ -17,18 +17,23 @@ Needs one CUDA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` into ``build/``). Phases; any failure exits
 non-zero before the result lines are printed:
 
-1. device and build: the card's name and power limit, all five kernels
+1. device and build: the card's name and power limit, all six kernels
    built in parallel;
 2. each kernel against its plain PyTorch twin on the card, at the main
    paths' shapes (the training hops of phase 9 included), with the
    stated tolerances; each timed (device time under ``torch.profiler``)
    beside its twin, its bound and, where one PyTorch call computes the
    same function, that call (used here as a yardstick only); at the
-   training hops also the device time of the backward (the twin's
-   gradient, as the reference's custom VJPs take it); each flash hop
+   training hops (qwen3-0.6b, zamba2-1.2b, internvl2-1b, whisper-tiny,
+   mixtral-8x22b under its window, and qwen3's hop from zero state) the
+   flash backward kernel against its closed-form twin (bf16 gradients
+   within 2^-7 of the largest, fp32 state gradients within 1e-5, two
+   calls bit-identical), timed beside its bound, its twin, autograd of
+   the forward twin (the backward the card ran before the kernel) and,
+   from zero state, SDPA's backward; each flash hop
    names the kernel body the profiler saw, and a bf16 hop with more than
    one query at head_dim 64 or 128 fails unless it ran the tensor-core
-   body of its width;
+   body of its width (the backward: both passes' tensor-core bodies);
 3. serving: ``ServeEngine`` over ``RingShardedBackend(n_pe=4, mode="qlr")``,
    whose ring hops run the kernels, qwen3-0.6b at full width in bf16 with
    random weights from a seed, 8 requests plus 4 admitted mid-run; every kernel's
@@ -58,13 +63,15 @@ non-zero before the result lines are printed:
 9. training: ``make_train_step`` on qwen3-0.6b at full width and depth,
    bf16 with fp32 master weights, remat "full", AdamW at a constant 3e-4,
    ring of 4 PEs in qlr (every QKV/FFN hop launches the tile matmul, every
-   attention hop the flash kernel, again in the remat recompute), 6 steps
+   attention hop the flash kernel, again in the remat recompute, and its
+   backward kernel once), 6 steps
    of 8 x 1024 tokens from ``SyntheticLM(seed=0)``: every loss finite and
    the last below the first; each step launches each kernel as often as
    reckoned from the code; median step time, tokens/s, ``train_mfu``
    (model FLOPs over step time x 989 TFLOP/s) and peak memory; one step
-   profiled (idle share, top kernels and ops, forward kernels against the
-   twin backwards). Then parity: 4 layers at full width, fp32, B=2,
+   profiled (idle share, top kernels and ops, the ``*_backward`` ranges:
+   the flash backward kernel, the twin backwards of the other two). Then
+   parity: 4 layers at full width, fp32, B=2,
    S=512: the loss and every gradient of the ring path in sw, xqueue and
    qlr against the dense path within 1e-4 and 1e-3, the modes bit for
    bit;
@@ -264,9 +271,13 @@ VLM_NPE = 2                        # phase 13 (a), (c): the ring of 2
 VLM_BATCH, VLM_SEQ = 4, 2048       # (a): internvl2 prefill, 4 x 2048
 MLA_BATCH, MLA_SEQ = 2, 2048       # (b): deepseek prefill, 2 x 2048
 WHISPER_BATCH, WHISPER_SEQ = 16, 448   # (c): 16 x 1500 frames, 448 tokens
-# profiler ranges around the twin backwards of the autograd.Functions
+# profiler ranges around the backwards of the autograd.Functions (the flash
+# hop's runs its backward kernel, the other two their twins' gradients)
 BACKWARD_LABELS = ("flash_carry_backward", "tile_matmul_backward",
                    "ssd_chunks_backward")
+# the kernel a range launches: its ctypes launches fall in no host range,
+# so ``profile`` adds the kernel's device time to the range's
+LABEL_KERNELS = {"flash_carry_backward": "flash_carry_bwd_kernel"}
 
 
 def log(msg: str) -> None:
@@ -551,6 +562,22 @@ def flash_cases(torch, fk, dev):
               (m_pe[late] - 2) % N_PE * m_l, big_m[late], None),
         opts=dict(causal=True, window=MOE_WINDOW, normalize=True,
                   out_dtype=bf))
+    # mixtral-8x22b's training hop of phase 11 (c) (1 x 2048 on the ring of
+    # 4: 4 rows, 512 queries and keys, 48 heads over 8 KV heads), hop 1,
+    # under its window
+    mt_l = 2048 // N_PE
+    cases["moe_train_hop"] = dict(
+        args=(torch.randn(N_PE, mt_l, mh, hd, generator=g, device=dev).to(bf),
+              torch.randn(N_PE, mt_l, mkv, hd, generator=g,
+                          device=dev).to(bf),
+              torch.randn(N_PE, mt_l, mkv, hd, generator=g,
+                          device=dev).to(bf),
+              *state(N_PE, mt_l, fresh=False, h=mh),
+              torch.arange(N_PE, device=dev) * mt_l,
+              (torch.arange(N_PE, device=dev) - 1) % N_PE * mt_l,
+              torch.tensor(2 ** 30, device=dev).expand(N_PE), None),
+        opts=dict(causal=True, window=MOE_WINDOW, normalize=False))
+    cases["moe_train_hop"]["args"][3][::3] = -1e30
     # phase 12: hop 1 of zamba2-1.2b's prefill (4 x 2048 on the ring of 4:
     # 16 rows of PE x batch, 512 queries and keys, 32 heads, MHA, head_dim
     # 64) and of granite-34b's (2 x 2048: 8 rows, 48 heads over one KV
@@ -634,9 +661,8 @@ def flash_cases(torch, fk, dev):
 
 
 def backward_ms(torch, apply, args, diff):
-    """Device time of the backward of one ``apply(*args)`` (an
-    ``autograd.Function``: the twin's gradient) in the inputs at the
-    positions ``diff``, for random output gradients."""
+    """Device time of the backward of one ``apply(*args)`` in the inputs
+    at the positions ``diff``, for random output gradients."""
     args = list(args)
     leaves = []
     for i in diff:
@@ -694,9 +720,9 @@ def sdpa_masked_call(torch, q, k, v, mask):
                                                   attn_mask=mask[:, None])
 
 
-def check_flash(torch, fk, dev):
+def check_flash(torch, fk, dev, cases):
     out = []
-    for name, case in flash_cases(torch, fk, dev).items():
+    for name, case in cases.items():
         args, opts = case["args"], case["opts"]
         got = fk.flash_carry_cuda(*args, **opts)
         want = fk.flash_carry_plain(*args, **opts)
@@ -727,12 +753,6 @@ def check_flash(torch, fk, dev):
                               .abs().max()) <= 2e-2
             lib = time_ms(call)
         b_ms, b_by = flash_bound(torch, fk, args, opts)
-        bwd = None
-        if name == "train_hop":
-            bwd = backward_ms(
-                torch, lambda *a: fk._FlashCarry.apply(
-                    *a, opts["causal"], opts["window"], False, None),
-                args, range(6))
         launch = lambda: fk.flash_carry_cuda(*args, **opts)  # noqa: E731
         body = profiled_bodies(launch, "flash_carry_kernel")
         q, k = args[0], args[1]
@@ -751,16 +771,128 @@ def check_flash(torch, fk, dev):
                                    iters=3 if name.startswith("moe")
                                    else 20),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-               "twin_backward_ms": bwd,
                "shape": {"q": list(args[0].shape), "k": list(args[1].shape),
                          "dtype_q": str(args[0].dtype),
                          "dtype_kv": str(args[1].dtype)}}
         log(f"[kernels] flash_carry {name}: {body} max_abs_err={err:.3e} "
             f"(tol {tol}) kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"library {lib}, twin backward {bwd}" + ratio_text(rec))
+            f"library {lib}" + ratio_text(rec))
         out.append(rec)
         del got, want
+    return out
+
+
+# phase 2's backward cases: the training hops of phases 9, 11 (c), 12 (c)
+# and 13 (flash_cases' names), and qwen3's hop from zero state (the
+# normalized case's inputs, the causal diagonal of the ring's hop 0)
+BWD_CASES = ("train_hop", "zamba_prefill_hop", "vlm_prefill_hop",
+             "whisper_prefill_hop", "moe_train_hop", "train_zero_state")
+
+
+def twin_backward(torch, fk, args, ups, opts):
+    """The flash hop's backward as the card ran it before its kernel:
+    autograd of the forward twin, recomputed from the saved inputs; a None
+    cotangent counts as zero."""
+    diff = [x.detach().requires_grad_(True) for x in args[:6]]
+    with torch.enable_grad():
+        outs = fk.flash_carry_plain(*diff, *args[6:], **opts)
+        pairs = [(o, g) for o, g in zip(outs, ups) if g is not None]
+        got = torch.autograd.grad([o for o, _ in pairs], diff,
+                                  [g for _, g in pairs], allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for x, g in zip(diff, got))
+
+
+def sdpa_backward_call(torch, q, k, v):
+    """SDPA's backward (causal, GQA) on the same q/k/v for a random output
+    gradient, as a yardstick: one PyTorch call's kernels."""
+    import torch.nn.functional as F
+    leaves = [x.detach().transpose(1, 2).requires_grad_(True)
+              for x in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+    except TypeError:
+        rep = q.shape[2] // k.shape[2]
+        out = F.scaled_dot_product_attention(
+            leaves[0], leaves[1].repeat_interleave(rep, 1),
+            leaves[2].repeat_interleave(rep, 1), is_causal=True)
+    up = torch.randn_like(out)
+    return lambda: torch.autograd.grad(out, leaves, up, retain_graph=True)
+
+
+def check_flash_backward(torch, fk, dev, cases):
+    """The backward kernel at ``BWD_CASES``, the saved outputs the forward
+    kernel's: against the closed-form twin (bf16 gradients within 2^-7 of
+    the largest; fp32 state gradients within 1e-5, fp32 gradients of the
+    CUDA-core body within 1e-4, of max(1, the largest)), two calls
+    bit-identical, the tensor-core bodies where the forward takes its own;
+    timed beside its bound at the live pairs, the twin, autograd of the
+    forward twin and, from zero state, SDPA's backward."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for name in BWD_CASES:
+        src = "train_normalized" if name == "train_zero_state" else name
+        args = cases[src]["args"]
+        opts = {k: cases[src]["opts"][k] for k in ("causal", "window")}
+        q, k, v, m, l, acc, q_off, k_off, klen, kv_row = args
+        outs = fk.flash_carry_cuda(*args, **opts)
+        ups = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+        call = lambda: fk.flash_carry_backward_cuda(  # noqa: E731
+            *args, *outs, *ups, **opts)
+        before = fk.FLASH_CARRY_BWD.launches
+        got, again = call(), call()
+        launched = fk.FLASH_CARRY_BWD.launches - before
+        want = fk.flash_carry_backward_plain(*args, *outs, *ups, **opts)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok, errs, tols = same and launched == 2, [], []
+        for i, (x, y) in enumerate(zip(got, want)):
+            big = float(y.float().abs().max())
+            tol = 2 ** -7 * big if x.dtype == torch.bfloat16 else \
+                (1e-5 if i >= 3 else 1e-4) * max(1.0, big)
+            err = float((x.float() - y.float()).abs().max())
+            ok = ok and err <= tol and bool(torch.isfinite(x).all())
+            errs.append(err)
+            tols.append(tol)
+        del got, again, want
+        mask = fk.key_mask(q_off.int(), k_off.int(), klen.int(), q.shape[1],
+                           k.shape[1], causal=opts["causal"],
+                           window=opts["window"])
+        flops, moved, kind = fk.backward_work(q, k, m, acc,
+                                              pairs=int(mask.sum()))
+        del mask
+        b_ms, b_by = bound(moved, flops, kind)
+        body = profiled_bodies(call, "flash_carry_bwd_kernel")
+        d = q.shape[-1]
+        if q.dtype == k.dtype == torch.bfloat16 and q.shape[1] > 1 \
+                and d in (64, 128):
+            ok = ok and body is not None and "simt" not in body \
+                and f"flash_carry_bwd_kernel_rows_mma<{d}>" in body \
+                and f"flash_carry_bwd_kernel_keys_mma<{d}," in body
+        lib = None
+        if name == "train_zero_state":
+            lib = time_ms(sdpa_backward_call(torch, q, k, v), iters=10)
+        rec = {"case": name, "max_abs_err": max(errs), "errors": errs,
+               "tols": tols, "ok": ok, "bit_identical": same, "body": body,
+               "ms": time_ms(call, iters=10, only="flash_carry_bwd_kernel"),
+               "plain_ms": time_ms(lambda: fk.flash_carry_backward_plain(
+                   *args, *outs, *ups, **opts), iters=3),
+               "twin_backward_ms": time_ms(lambda: twin_backward(
+                   torch, fk, args, ups, opts), iters=3),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+               "shape": {"q": list(q.shape), "k": list(k.shape),
+                         "dtype_q": str(q.dtype), "dtype_kv": str(k.dtype),
+                         "window": opts["window"]}}
+        log(f"[kernels] flash_carry_bwd {name}: {body} errors "
+            f"{[f'{e:.3e}' for e in errs]} (tols "
+            f"{[f'{t:.3e}' for t in tols]}), bit-identical {same}: kernel "
+            f"{rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, autograd "
+            f"twin {rec['twin_backward_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), library {lib}" + ratio_text(rec))
+        out.append(rec)
+        del outs, ups
     return out
 
 
@@ -1195,6 +1327,16 @@ def ring_expect(cfg, n_pe: int, passes: int = 1) -> dict:
             "flash_carry": passes * cfg.num_layers * n_pe}
 
 
+def with_backward(expect: dict, remat: str) -> dict:
+    """A training step's launches ``expect`` (forward and remat recompute)
+    with the flash backward kernel's: once per hop the step differentiates
+    (the forward's flash launches; every remat but "none" runs each hop a
+    second time, the kernels being no aten products)."""
+    passes = 1 if remat == "none" else 2
+    return {**expect,
+            "flash_carry_bwd": expect.get("flash_carry", 0) // passes}
+
+
 def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b",
                      n_pe: int = N_PE):
     """``ServeEngine`` over ``RingShardedBackend(n_pe, "qlr")``, ``arch`` at
@@ -1306,7 +1448,8 @@ def profile(torch, fn, top: int = 6, labels=(), warm: bool = True) -> dict:
     call under ``torch.profiler``, and the device's idle share of the
     call's wall time (one stream, so kernel times add up to the busy
     time); with ``labels``, the device time under each of those
-    ``record_function`` ranges. ``warm=False`` when ``fn`` already ran."""
+    ``record_function`` ranges (with its kernel's, ``LABEL_KERNELS``).
+    ``warm=False`` when ``fn`` already ran."""
     from torch.profiler import ProfilerActivity
     if warm:
         fn()
@@ -1331,8 +1474,11 @@ def profile(torch, fn, top: int = 6, labels=(), warm: bool = True) -> dict:
                                                     ops=True)[:top]],
            "kernel_ms": {name: sum(ms for k, ms, _ in rows if name in k)
                          for name in ("flash_carry_kernel",
+                                      "flash_carry_bwd_kernel",
                                       "tile_matmul_kernel")},
-           "label_ms": {label: label_ms(prof, label) for label in labels}}
+           "label_ms": {label: label_ms(prof, label) + sum(
+               ms for k, ms, _ in rows if label in LABEL_KERNELS
+               and LABEL_KERNELS[label] in k) for label in labels}}
     log(f"[profile] {json.dumps(out)}")
     return out
 
@@ -2205,8 +2351,10 @@ def moe_train(torch, kernels, dev):
     ring of 4 in qlr, remat "full": one ``loss`` and its backward (no
     optimizer step: AdamW's fp32 state would not fit at full width). The
     loss and every gradient finite, aux > 0, the launches as reckoned
-    (forward plus the remat recompute), the twins' backward device time."""
+    (forward plus the remat recompute, the flash backward kernel once a
+    hop), the backwards' device time."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import build_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as step_lib
@@ -2217,9 +2365,11 @@ def moe_train(torch, kernels, dev):
     raw = np.random.default_rng(14).integers(0, cfg.vocab_size, (1, 2049))
     batch = {"tokens": torch.as_tensor(raw[:, :-1], device=dev),
              "targets": torch.as_tensor(raw[:, 1:], device=dev)}
-    expect = {"tile_matmul": 2 * cfg.num_layers
-              * (qkv_ring_hops(cfg, N_PE) + 3),
-              "flash_carry": 2 * cfg.num_layers * N_PE}
+    expect = with_backward({"tile_matmul": 2 * cfg.num_layers
+                            * (qkv_ring_hops(cfg, N_PE) + 3),
+                            "flash_carry": 2 * cfg.num_layers * N_PE},
+                           cfg.remat)
+    kernels = (*kernels, fk.FLASH_CARRY_BWD)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k.name: k.launches for k in kernels}
@@ -2661,10 +2811,12 @@ def olmo_train_launcher(torch, kernels, dev):
     are the steps times the reckoning per step: per layer the QKV ring
     (where its gate takes the shapes, N_PE x 3) and the FFN rings (N_PE x
     3) on the tile matmul and ring attention's N_PE flash hops, the block
-    recomputed once in the backward under remat "full"."""
+    recomputed once in the backward under remat "full", and the flash
+    backward kernel once a hop."""
     import shutil
     import signal
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch import train as launch
     out = ROOT / "build" / "olmo_train"
     shutil.rmtree(out, ignore_errors=True)
@@ -2678,7 +2830,10 @@ def olmo_train_launcher(torch, kernels, dev):
             "--ckpt-dir", str(out / "ckpt"), "--log", str(out / "log.jsonl")]
     cfg = replace(get_config("olmo-1b"), num_layers=OLMO_TRAIN_LAYERS)
     qkv_ring = qkv_ring_hops(cfg, N_PE) > 0   # the launcher's 128 tokens split
-    per_step = ring_expect(cfg, N_PE, passes=1 if cfg.remat == "none" else 2)
+    per_step = with_backward(
+        ring_expect(cfg, N_PE, passes=1 if cfg.remat == "none" else 2),
+        cfg.remat)
+    kernels = (*kernels, fk.FLASH_CARRY_BWD)
     log(f"[olmo-train] reckoned per step ({OLMO_TRAIN_LAYERS} layers, QKV "
         f"ring {'runs' if qkv_ring else 'refused'}, remat {cfg.remat}): "
         f"{per_step}")
@@ -2904,16 +3059,22 @@ def train_steps(torch, kernels, cfg, n_pe, batches, dev, expect, tag,
                 check=None, profiled=None):
     """``make_train_step`` (AdamW at a constant 3e-4, fp32 masters, seed 0)
     over ``batches``, at least two: finite losses and gradient norms,
-    launches per step as ``expect``. The step time and rate reported are
+    launches per step as ``expect`` and, once per differentiated flash hop,
+    the flash backward kernel's (``with_backward``), no call of a flash
+    twin on the card. The step time and rate reported are
     the last step's: the first warms the allocator and the kernels'
     launch paths. ``check(model, params, batch)`` first sees the initial
     parameters and the first batch; with a ``profiled`` batch, one more
     step is profiled. Returns the result."""
     from repro_torch.configs import TrainConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import build_model
     from repro_torch.train import step as step_lib
     from repro_torch.train.optimizer import tree_leaves
     assert len(batches) >= 2, "a step's time needs a warm-up step before it"
+    if fk.FLASH_CARRY_BWD not in kernels:
+        kernels = (*kernels, fk.FLASH_CARRY_BWD)
+    expect = with_backward(expect, cfg.remat)
     tcfg = TrainConfig(warmup_steps=0, schedule="constant",
                        learning_rate=3e-4)
     state = step_lib.init_state(cfg, tcfg, 0, dev)
@@ -3291,15 +3452,18 @@ def whisper_train(torch, kernels, dev, steps: int = 2):
 
 def phase13(torch, kernels, dev):
     """Phase 13's runs in order, each path's launches counted from zero
-    just before it; returns {run: result} and {path: launches}."""
+    just before it (the flash backward kernel's too); returns {run:
+    result} and {path: launches}."""
+    from repro_torch.kernels.flash_attention import kernel as fk
     launches, out = {}, {}
+    every = (*kernels, fk.FLASH_CARRY_BWD)
 
     def counted(name, fn):
-        for k in kernels:
+        for k in every:
             k.launches = 0
         t0 = time.perf_counter()
         res = fn()
-        launches[name] = {k.name: k.launches for k in kernels}
+        launches[name] = {k.name: k.launches for k in every}
         log(f"[phase13] {name}: {time.perf_counter() - t0:.1f} s, launches "
             f"{launches[name]}")
         torch.cuda.empty_cache()
@@ -3988,9 +4152,11 @@ def example_quickstart(torch, kernels, dev):
     """(a) ``examples.quickstart.run`` at full width: qwen3-0.6b, bf16,
     qlr on the ring of 4. The loss is finite and within 1.0 of ln V; the
     train step's launches are the loss's times the forward passes (two
-    under remat "full": the forward and its recompute); 5 tokens decode."""
+    under remat "full": the forward and its recompute), and the flash
+    backward kernel's once per hop of the loss; 5 tokens decode."""
     from repro_torch.configs import get_config
     from repro_torch.examples import quickstart
+    from repro_torch.kernels.flash_attention import kernel as fk
     cfg = replace(get_config("qwen3-0.6b"), systolic_mode="qlr")
     marks = []
 
@@ -3998,6 +4164,7 @@ def example_quickstart(torch, kernels, dev):
         torch.cuda.synchronize()
         marks.append((name, launch_counts(kernels), time.perf_counter()))
 
+    kernels = (*kernels, fk.FLASH_CARRY_BWD)
     out = quickstart.run(cfg, n_pe=N_PE, device=dev, on_stage=stage)
     per_stage, seconds = {}, {}
     for (name, c0, t0), (_, c1, t1) in zip(marks, marks[1:]):
@@ -4008,11 +4175,14 @@ def example_quickstart(torch, kernels, dev):
     assert np.isfinite(out["loss"]) and np.isfinite(out["step_loss"])
     assert abs(out["loss"] - out["ln_vocab"]) <= 1.0, out["loss"]
     passes = 1 if cfg.remat == "none" else 2
-    for k in kernels:
+    for k in kernels[:-1]:
         fwd = per_stage["loss"][k.name]
         assert fwd > 0, f"{k.name} never launched in the quickstart's loss"
         assert per_stage["train_step"][k.name] == passes * fwd, \
             (k.name, per_stage)
+    assert per_stage["loss"]["flash_carry_bwd"] == 0
+    assert per_stage["train_step"]["flash_carry_bwd"] == \
+        per_stage["loss"]["flash_carry"], per_stage
     assert len(out["tokens"]) == quickstart.DECODE_TOKENS
     assert all(0 <= t < cfg.vocab_size for t in out["tokens"])
     return out
@@ -4148,8 +4318,8 @@ def example_topologies(torch, kernels, dev):
         else:
             summary[section]["identical"] = recs["identical"]
             assert recs["identical"], f"{section}: modes differ"
-    for k in kernels:
-        if k.name != "ssd_chunks":
+    for k in kernels:           # no Mamba2 layer, no backward here
+        if k.name not in ("ssd_chunks", "flash_carry_bwd"):
             assert launched[k.name] > 0, f"{k.name} never launched"
     summary["launches"] = launched
     log(f"[examples] systolic_topologies: {json.dumps(summary)}")
@@ -4162,8 +4332,8 @@ def example_train(torch, kernels, dev):
     (checkpoint every 10) and resumed to ``EXAMPLE_TRAIN[1]``; checkpoints
     and a per-step log under ``build/examples_train_lm/`` (deleted after).
     Losses finite and falling from step 1 to the cut; the resumed run
-    starts at the cut. Step ms and tokens/s are medians past the first
-    step of the cut run."""
+    starts at the cut. Step ms and tokens/s are
+    medians past the first step of the cut run."""
     import shutil
     import signal
     from repro_torch.examples import train_lm
@@ -4281,7 +4451,16 @@ def main() -> int:
         for func, info in ptxas_summary(k.ptxas_log):
             log(f"[build] {k.name}: {func}: {info}")
 
-    flash = check_flash(torch, fk, dev)
+    cases = flash_cases(torch, fk, dev)
+    flash = check_flash(torch, fk, dev, cases)
+    flash_bwd = check_flash_backward(torch, fk, dev, cases)
+    del cases
+    for rec in flash:           # each training hop's backward beside it
+        for b in flash_bwd:
+            if b["case"] == rec["case"]:
+                rec["backward"] = {k: b[k] for k in (
+                    "ms", "bound_ms", "bound_by", "max_abs_err", "plain_ms",
+                    "twin_backward_ms")}
     mm = check_matmul(torch, mk, dev)
     # phase 14 (a) runs here, beside phase 2's cases: late in a long run
     # the profiler loses launches (time_ms then falls back to events)
@@ -4289,8 +4468,8 @@ def main() -> int:
     conv = check_conv(torch, ck, dev)
     ffts = check_fft(torch, ffk, fft, dev)
     ssds = check_ssd(torch, sk, dev)
-    bad = [r["case"] for r in flash + mm + blocks + conv + ffts + ssds
-           if not r["ok"]]
+    bad = [r["case"] for r in flash + flash_bwd + mm + blocks + conv + ffts
+           + ssds if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
 
@@ -4482,6 +4661,10 @@ def main() -> int:
         entry(fk.FLASH_CARRY, "src/repro_torch/csrc/flash_carry.cu",
               "src/repro/kernels/flash_attention/kernel.py:140", flash,
               "decode_hop"),
+        # no Pallas kernel: the reference's custom VJP of its flash hop
+        entry(fk.FLASH_CARRY_BWD, "src/repro_torch/csrc/flash_carry_bwd.cu",
+              "src/repro/kernels/flash_attention/ops.py:129", flash_bwd,
+              "train_zero_state"),
         entry(mk.TILE_MATMUL, "src/repro_torch/csrc/tile_matmul.cu",
               "src/repro/kernels/systolic_matmul/kernel.py:104",
               mm + blocks, "ffn_ag_hop"),

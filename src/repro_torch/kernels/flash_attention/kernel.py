@@ -21,6 +21,13 @@ output is ``acc / max(l, 1e-30)`` in ``out_dtype`` instead of ``acc``.
 Tensors on the CPU take the plain twin; CUDA tensors launch the kernel or
 raise.
 
+Its gradient is a kernel of its own, ``csrc/flash_carry_bwd.cu`` (the
+reference's custom VJP, ``jax.vjp`` of its oracle), beside its plain twin
+``flash_carry_backward_plain``, a closed-form gradient. ``flash_carry``
+goes through ``_FlashCarry`` on every device: forward and backward take
+the kernels for CUDA tensors and the twins for CPU tensors, and each
+reports its launch to the roofline counter.
+
 The kernel has two bodies. bf16 q and K/V with more than one query at
 head_dim 64 or 128 (the ring prefill and training hops) take the
 tensor-core body (``mma.sync``; at head_dim 64 with an unmasked path for
@@ -59,6 +66,22 @@ FLASH_CARRY = Kernel("flash_carry", {
         _P,                             # stream
     ],
 })
+FLASH_CARRY_BWD = Kernel("flash_carry_bwd", {
+    "flash_carry_bwd": [
+        _P, _L, _L, _L, _I,             # q, q strides, q dtype
+        _P, _P, _L, _L, _L, _I,         # k, v, kv strides, kv dtype
+        _P, _P, _P, _I,                 # kv_row, order, start, T
+        _P, _P, _P,                     # q_off, k_off, klen
+        _P, _P, _P, _P, _P, _P,         # m, l, acc; m_new, l_new, acc_new
+        _P, _P, _P,                     # g_m, g_l, g_acc
+        _P, _P, _P, _P, _P, _P,         # dq, dk, dv; dm, dl, dacc
+        _P, _P, _P, _P,                 # scratch: tie max, tie w, g16, flags
+        _I, _I, _I, _I, _I, _I,         # B', Bk, H, Kv, Sq, D
+        _I, _I, ctypes.c_float,         # causal, window, scale
+        _P,                             # stream
+    ],
+    "flash_carry_bwd_uses_mma": [_I, _I, _I, _I],
+})
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -95,6 +118,22 @@ def work(q, k, m, l, acc, *, normalize: bool = False, out_dtype=None,
     return 4 * d * h * pairs, moved, kind
 
 
+def backward_work(q, k, m, acc, *, pairs: int | None = None):
+    """(operations, bytes, type) of one backward launch: 12·D operations
+    per (query, head, key) pair, as the reference's VJP counts them (its
+    oracle's two products recomputed, four more for the gradients); each
+    input read once (q, K, V, the state, the saved outputs, the
+    cotangents) and each output written once (dq, dK, dV, the state's
+    gradients). ``pairs`` defaults to every pair of the launch."""
+    bp, sq, h, d = q.shape
+    t = k.shape[1]
+    pairs = bp * sq * t if pairs is None else pairs
+    moved = (2 * count.nbytes(q) + 4 * count.nbytes(k)
+             + 8 * m.numel() * 4 + 4 * acc.numel() * 4)
+    kind = "bf16" if q.dtype == k.dtype == torch.bfloat16 else "fp32"
+    return 12 * d * h * pairs, moved, kind
+
+
 def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
                       *, causal: bool, window: int = 0,
                       normalize: bool = False, out_dtype=None):
@@ -124,6 +163,27 @@ def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     return m_new, l_new, acc_new
 
 
+def _check_operands(name: str, q, k, v) -> int:
+    """Raise unless the kernels take q, K and V (shapes, types, head_dim);
+    returns how many K/V elements make the 16-byte vectors they are read
+    as."""
+    h, d = q.shape[2:]
+    kvh, dk = k.shape[2:]
+    if dk != d or tuple(v.shape) != tuple(k.shape) or h % kvh:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    if d > HEAD_DIM_MAX:
+        raise ValueError(f"{name}: head_dim {d} > {HEAD_DIM_MAX}")
+    if q.dtype not in DTYPE_CODES or k.dtype not in DTYPE_CODES \
+            or v.dtype != k.dtype:
+        raise TypeError(f"{name}: unsupported dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    vn = 16 // k.element_size()
+    if d % vn:
+        raise ValueError(f"{name}: head_dim {d} is not a multiple of {vn}")
+    return vn
+
+
 def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
                      *, causal: bool, window: int = 0,
                      normalize: bool = False, out_dtype=None):
@@ -133,20 +193,8 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     require_cuda_tensors("flash_carry", q, k, v, m, l, acc, q_off, k_off,
                          klen, kv_row)
     bp, sq, h, d = q.shape
-    bk, t, kvh, dk = k.shape
-    if dk != d or tuple(v.shape) != tuple(k.shape) or h % kvh:
-        raise ValueError(f"flash_carry: q {tuple(q.shape)} does not match "
-                         f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    if d > HEAD_DIM_MAX:
-        raise ValueError(f"flash_carry: head_dim {d} > {HEAD_DIM_MAX}")
-    if q.dtype not in DTYPE_CODES or k.dtype not in DTYPE_CODES \
-            or v.dtype != k.dtype:
-        raise TypeError(f"flash_carry: unsupported dtypes {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    vn = 16 // k.element_size()          # K/V are read as 16-byte vectors
-    if d % vn:
-        raise ValueError(f"flash_carry: head_dim {d} is not a multiple of "
-                         f"{vn}")
+    bk, t, kvh, _ = k.shape
+    vn = _check_operands("flash_carry", q, k, v)
     if is_fake(q, k, v, m, l, acc):             # a dry run's shapes
         o_dt = (out_dtype or q.dtype) if normalize else torch.float32
         return (torch.empty_like(m, dtype=torch.float32),
@@ -199,45 +247,204 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     return m_o, l_o, o
 
 
+def flash_carry_backward_plain(q, k, v, m, l, acc, q_off, k_off, klen,
+                               kv_row, m_new, l_new, acc_new, g_m, g_l,
+                               g_acc, *, causal: bool, window: int = 0):
+    """The gradient of ``flash_carry_plain`` (``normalize=False``) in
+    closed form: (dq, dk, dv, dm, dl, dacc) for the cotangents (g_m, g_l,
+    g_acc) of its outputs (m_new, l_new, acc_new), a None cotangent
+    counting as zero. ``m_new = maximum(m, amax(s))`` passes ``r = g_m -
+    g_l l_new - g_acc . acc_new`` on as torch and JAX do: all to m where m
+    exceeds the block's max, split equally among the scores that tie the
+    max where it exceeds m, half to each side where they are equal."""
+    rows = None if kv_row is None else kv_row.long()
+    kk, vv = (k, v) if rows is None else (k[rows], v[rows])
+    bp, sq, h, d = q.shape
+    t, kvh = kk.shape[1], kk.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    g_m = torch.zeros_like(m_new) if g_m is None else g_m.float()
+    g_l = torch.zeros_like(l_new) if g_l is None else g_l.float()
+    g_acc = torch.zeros_like(acc_new) if g_acc is None else g_acc.float()
+    q5 = q.float().reshape(bp, sq, kvh, g, d)
+    kf, vf = kk.float(), vv.float()
+    s = torch.einsum("bskgd,btkd->bkgst", q5, kf).reshape(bp, h, sq, t) \
+        * scale
+    mask = key_mask(q_off, k_off, klen, sq, t, causal=causal,
+                    window=window)[:, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    ga5 = g_acc.reshape(bp, kvh, g, sq, d)
+    dp = torch.einsum("bkgsd,btkd->bkgst", ga5, vf).reshape(bp, h, sq, t) \
+        + g_l[..., None]
+    # the max route: the block's max against the carried m
+    r = g_m - g_l * l_new - (g_acc * acc_new).sum(dim=-1)
+    big = s.amax(dim=-1)
+    to_s = torch.where(big > m, 1.0, torch.where(big == m, 0.5, 0.0))
+    ties = s == big[..., None]
+    w = to_s * r / ties.sum(dim=-1)
+    ds = p * dp + torch.where(ties, w[..., None], 0.0)
+    ds5 = torch.where(mask, ds, 0.0).reshape(bp, kvh, g, sq, t)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds5, kf).reshape(bp, sq, h, d) \
+        * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds5, q5) * scale
+    dv = torch.einsum("bkgst,bkgsd->btkd", p.reshape(bp, kvh, g, sq, t),
+                      ga5)
+    if rows is not None:                # query rows sharing a K/V row add up
+        dk = torch.zeros(k.shape, device=k.device).index_add_(0, rows, dk)
+        dv = torch.zeros(v.shape, device=v.device).index_add_(0, rows, dv)
+    dm = corr * (g_l * l + (g_acc * acc).sum(dim=-1)) + (1.0 - to_s) * r
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dm, g_l * corr,
+            g_acc * corr[..., None])
+
+
+def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
+                              kv_row, m_new, l_new, acc_new, g_m, g_l,
+                              g_acc, *, causal: bool, window: int = 0):
+    """One launch of the backward kernel (its two passes): the tensor-core
+    body for bf16 q and K/V with Sq > 1 at head_dim 64 or 128, the
+    CUDA-core body otherwise. Query rows are grouped by the K/V row they
+    read (a stable argsort), so pass B sums each K/V row's gradients over
+    them in a fixed order."""
+    require_cuda_tensors("flash_carry_bwd", q, k, v, m, l, acc, q_off,
+                         k_off, klen, kv_row, m_new, l_new, acc_new, g_m,
+                         g_l, g_acc)
+    bp, sq, h, d = q.shape
+    bk, t, kvh, _ = k.shape
+    vn = _check_operands("flash_carry_bwd", q, k, v)
+    if tuple(acc_new.shape) != (bp, h, sq, d):
+        raise ValueError("flash_carry_bwd: the saved acc_new is "
+                         f"{tuple(acc_new.shape)}, not {(bp, h, sq, d)}")
+    dev = q.device
+    outs = (torch.empty((bp, sq, h, d), dtype=q.dtype, device=dev),
+            torch.empty((bk, t, kvh, d), dtype=k.dtype, device=dev),
+            torch.empty((bk, t, kvh, d), dtype=v.dtype, device=dev),
+            torch.empty((bp, h, sq), dtype=torch.float32, device=dev),
+            torch.empty((bp, h, sq), dtype=torch.float32, device=dev),
+            torch.empty((bp, h, sq, d), dtype=torch.float32, device=dev))
+    if is_fake(q, k, v, m, l, acc, m_new, l_new, acc_new):
+        return outs
+    if bp == 0 or sq == 0:              # no query reads a key
+        outs[1].zero_()
+        outs[2].zero_()
+        return outs
+    if kv_row is None:
+        if bk != bp:
+            raise ValueError("flash_carry_bwd: kv_row is needed when K/V "
+                             "rows differ from query rows")
+        kv_row = torch.arange(bp, device=dev)
+    ints = [x.to(torch.int32).contiguous() for x in (kv_row, q_off, k_off,
+                                                      klen)]
+    for x in ints:
+        if tuple(x.shape) != (bp,):
+            raise ValueError(f"flash_carry_bwd: per-row ints must be "
+                             f"[{bp}], got {tuple(x.shape)}")
+    kv_row, q_off, k_off, klen = ints
+    order = torch.argsort(kv_row, stable=True).to(torch.int32)
+    start = torch.zeros(bk + 1, dtype=torch.int32, device=dev)
+    start[1:] = torch.cumsum(torch.bincount(kv_row, minlength=bk)[:bk], 0)
+    # q rows are copied as 16-byte vectors
+    if q.stride(-1) != 1 or any(st % 8 for st in q.stride()[:3]) \
+            or q.data_ptr() % 16:
+        q = q.contiguous()
+        if q.data_ptr() % 16:
+            q = q.clone()
+    if k.stride(-1) != 1 or k.stride() != v.stride() \
+            or any(st % vn for st in k.stride()[:3]) \
+            or k.data_ptr() % 16 or v.data_ptr() % 16:
+        k, v = k.contiguous(), v.contiguous()
+
+    def state(x, shape):
+        x = torch.zeros(shape, device=dev) if x is None else \
+            x.float().contiguous()
+        return x.clone() if x.data_ptr() % 16 else x
+
+    sh, ash = (bp, h, sq), (bp, h, sq, d)
+    m, l, m_new, l_new, g_m, g_l = (state(x, sh) for x in (
+        m, l, m_new, l_new, g_m, g_l))
+    acc, acc_new, g_acc = (state(x, ash) for x in (acc, acc_new, g_acc))
+    dq, dk, dv, dm, dl, dacc = outs
+    lib = FLASH_CARRY_BWD.lib()
+    mma = lib.flash_carry_bwd_uses_mma(DTYPE_CODES[q.dtype],
+                                       DTYPE_CODES[k.dtype], sq, d)
+    tie_max = torch.empty(sh, device=dev)
+    tie_w = torch.empty(sh, device=dev)
+    g16 = torch.empty(ash if mma else (8,), dtype=torch.bfloat16, device=dev)
+    tiles = (h // kvh * sq + 63) // 64       # pass A's 64-row tiles
+    flags = torch.empty((bp * kvh * tiles,), dtype=torch.int32, device=dev)
+    err = lib.flash_carry_bwd(
+        q.data_ptr(), *q.stride()[:3], DTYPE_CODES[q.dtype],
+        k.data_ptr(), v.data_ptr(), *k.stride()[:3], DTYPE_CODES[k.dtype],
+        kv_row.data_ptr(), order.data_ptr(), start.data_ptr(), t,
+        q_off.data_ptr(), k_off.data_ptr(), klen.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_new.data_ptr(),
+        l_new.data_ptr(), acc_new.data_ptr(), g_m.data_ptr(),
+        g_l.data_ptr(), g_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dm.data_ptr(), dl.data_ptr(), dacc.data_ptr(),
+        tie_max.data_ptr(), tie_w.data_ptr(), g16.data_ptr(),
+        flags.data_ptr(), bp, bk, h, kvh, sq, d, int(causal), int(window),
+        1.0 / math.sqrt(d), stream_handle(dev))
+    FLASH_CARRY_BWD.check(err)
+    FLASH_CARRY_BWD.launches += 1
+    return outs
+
+
+def flash_carry_backward(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
+                         m_new, l_new, acc_new, g_m, g_l, g_acc, *,
+                         causal: bool, window: int = 0):
+    """The backward twin for CPU tensors, the backward kernel otherwise,
+    under the profiler label ``flash_carry_backward``."""
+    with count.kernel(FLASH_CARRY_BWD.name,
+                      lambda: backward_work(q, k, m, acc)), \
+            record_function("flash_carry_backward"):
+        bwd = flash_carry_backward_plain if q.device.type == "cpu" \
+            else flash_carry_backward_cuda
+        return bwd(q, k, v, m, l, acc, q_off, k_off, klen, kv_row, m_new,
+                   l_new, acc_new, g_m, g_l, g_acc, causal=causal,
+                   window=window)
+
+
 class _FlashCarry(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: autograd of the plain twin (the
-    reference's ``ops._carry_fused`` custom VJP), under the profiler label
-    ``flash_carry_backward``."""
+    """Forward: the CUDA kernel, or the twin for CPU tensors. Backward:
+    ``flash_carry_backward`` (the backward kernel, or its twin), the
+    reference's ``ops._carry_fused`` custom VJP. The reference defines no
+    gradient for ``normalize=True`` (``_carry_fused`` fixes
+    ``normalize=False``), so its backward raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, m, l, acc, q_off, k_off, klen, kv_row, causal,
                 window, normalize, out_dtype):
-        ctx.save_for_backward(q, k, v, m, l, acc, q_off, k_off, klen, kv_row)
         ctx.opts = dict(causal=causal, window=window, normalize=normalize,
                         out_dtype=out_dtype)
-        return flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
-                                kv_row, **ctx.opts)
+        fwd = flash_carry_plain if q.device.type == "cpu" \
+            else flash_carry_cuda
+        outs = fwd(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
+                   **ctx.opts)
+        ctx.save_for_backward(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
+                              *outs)
+        return outs
 
     @staticmethod
     def backward(ctx, *grads):
-        q, k, v, m, l, acc, q_off, k_off, klen, kv_row = ctx.saved_tensors
-        diff = [x.detach().requires_grad_(True) for x in (q, k, v, m, l, acc)]
-        with torch.enable_grad(), record_function("flash_carry_backward"):
-            outs = flash_carry_plain(*diff, q_off, k_off, klen, kv_row,
-                                     **ctx.opts)
-            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-            got = torch.autograd.grad([o for o, _ in pairs],
-                                      diff, [g for _, g in pairs],
-                                      allow_unused=True)
+        q, k, v, m, l, acc, q_off, k_off, klen, kv_row, *outs = \
+            ctx.saved_tensors
+        if ctx.opts["normalize"]:
+            raise NotImplementedError(
+                "flash_carry defines no gradient for normalize=True")
+        got = flash_carry_backward(
+            q, k, v, m, l, acc, q_off, k_off, klen, kv_row, *outs, *grads,
+            causal=ctx.opts["causal"], window=ctx.opts["window"])
         return (*got, None, None, None, None, None, None, None, None)
 
 
 def flash_carry(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
                 causal: bool = True, window: int = 0,
                 normalize: bool = False, out_dtype=None):
-    """Plain twin for CPU tensors, the CUDA kernel otherwise."""
+    """Plain twin for CPU tensors, the CUDA kernel otherwise, through
+    ``_FlashCarry`` on both."""
     with count.kernel(FLASH_CARRY.name, lambda: work(
             q, k, m, l, acc, normalize=normalize, out_dtype=out_dtype)):
-        if q.device.type == "cpu":
-            return flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen,
-                                     kv_row, causal=causal, window=window,
-                                     normalize=normalize,
-                                     out_dtype=out_dtype)
         return _FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen,
                                  kv_row, causal, window, normalize,
                                  out_dtype)

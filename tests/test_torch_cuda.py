@@ -15,7 +15,11 @@ largest output, the reference's bound for its Pallas kernel against the
 chunked scan; bf16 inputs are widened to fp32 alike in kernel and twin (the
 tensor-core body's products of bf16 values are exact, and it splits M and
 x * w into two bf16 halves), so the bound holds for them too. The
-one-launch FFT equals its twin bit for bit.
+one-launch FFT equals its twin bit for bit. The flash backward kernel is
+held to its closed-form twin at the saved outputs: bf16 gradients within
+2^-7 of the largest (its products take bf16 operands), fp32 state
+gradients within 1e-5 and the CUDA-core body's fp32 gradients within 1e-4
+of max(1, the largest), bit-identical from call to call.
 """
 from __future__ import annotations
 
@@ -656,41 +660,95 @@ def test_cuda_tile_matmul_grads_at_training_hops(cuda, case):
         torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
 
 
-@pytest.mark.cuda
-def test_cuda_flash_carry_grads_at_training_hop(cuda):
-    """``_FlashCarry`` at qwen3-0.6b's training hop (32 rows of PE x
-    batch, 256 queries and keys, 16 heads over 8 KV heads, bf16, causal,
-    a carried state with rows still at the sentinel): its backward is the
-    twin's gradient at the saved inputs, so it equals the twin's autograd
-    to fp32 rounding."""
+# (n PEs, rows of PE x batch, queries and keys a hop, heads, KV heads,
+# head_dim, window, dtype of q / of K/V): hop 1 of each family's training
+# step on its ring (qwen3-0.6b 8 x 1024 on 4 PEs, zamba2-1.2b 4 x 2048 on
+# 4, internvl2-1b 4 x 2048 on 2, mixtral-8x22b 1 x 2048 on 4 under a
+# window cut to run through the block), and the CUDA-core body's inputs:
+# fp32 at qwen3's parity shape (2 x 512 on 4), bf16 at head_dim 16 (the
+# SMOKE models' width), one query per row (fp32 q against a bf16 cache)
+BWD_HOPS = {
+    "qwen3": (4, 32, 256, 16, 8, 128, 0, "bf16", "bf16"),
+    "zamba2": (4, 16, 512, 32, 32, 64, 0, "bf16", "bf16"),
+    "internvl2": (2, 8, 1024, 14, 2, 64, 0, "bf16", "bf16"),
+    "mixtral_window": (4, 4, 512, 48, 8, 128, 600, "bf16", "bf16"),
+    "fp32": (4, 8, 128, 16, 8, 128, 0, "fp32", "fp32"),
+    "bf16_hd16": (4, 8, 48, 4, 2, 16, 0, "bf16", "bf16"),
+    "sq1": (4, 8, 1, 16, 8, 128, 0, "fp32", "bf16"),
+}
+
+
+def _bwd_hop(cuda, case):
+    """(q, k, v, m, l, acc), (q_off, k_off, klen, kv_row) and the options
+    of one backward case. "kv_row" is qwen3's hop read through ``kv_row``
+    with every K/V row shared by two query rows (``baseline`` mode's
+    repeat), in a shuffled order."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    n, rows, s_l, h, kvh, hd = 4, 32, 256, 16, 8, 128
-    bf = torch.bfloat16
+    name = "qwen3" if case == "kv_row" else case
+    n, rows, s_l, h, kvh, hd, window, qdt, kvdt = BWD_HOPS[name]
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
     pe = torch.arange(n, device=cuda).repeat_interleave(rows // n)
     src = (pe - 1) % n
-    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(bf)
-    k = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
-    v = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    t = 256 if name == "sq1" else s_l
+    bk = rows // 2 if case == "kv_row" else rows
+    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(dt[qdt])
+    k = torch.randn(bk, t, kvh, hd, generator=g, device=cuda).to(dt[kvdt])
+    v = torch.randn(bk, t, kvh, hd, generator=g, device=cuda).to(dt[kvdt])
     m = torch.randn(rows, h, s_l, generator=g, device=cuda)
-    m[::3] = -1e30
+    m[::3] = -1e30                      # rows still at the sentinel
     l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
     acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
-    ints = (pe * s_l, src * s_l,
-            torch.full((rows,), 2 ** 30, device=cuda), None)
-    diff = [x.requires_grad_(True) for x in (q, k, v, m, l, acc)]
-    ups = [torch.randn(x.shape, generator=g, device=cuda)
-           for x in (m, l, acc)]
-    before = fk.FLASH_CARRY.launches
-    got_out = fk._FlashCarry.apply(*diff, *ints, True, 0, False, None)
-    got = torch.autograd.grad(got_out, diff, ups)
-    assert fk.FLASH_CARRY.launches == before + 1
-    want = torch.autograd.grad(
-        fk.flash_carry_plain(*diff, *ints, causal=True), diff, ups)
+    kv_row = None
+    if case == "kv_row":
+        kv_row = torch.arange(bk, device=cuda).repeat_interleave(2)[
+            torch.randperm(rows, generator=g, device=cuda)]
+    if name == "sq1":                   # a decode-shaped row: pos + 1 keys
+        ints = (0 * pe, src * t,
+                src * t + torch.randint(1, t, (rows,), generator=g,
+                                        device=cuda), kv_row)
+        causal = False
+    else:
+        ints = (pe * s_l, src * s_l,
+                torch.full((rows,), 2 ** 30, device=cuda), kv_row)
+        causal = True
+    return (q, k, v, m, l, acc), ints, dict(causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*BWD_HOPS, "kv_row"])
+def test_cuda_flash_carry_grads_at_training_hop(cuda, case):
+    """``_FlashCarry``'s backward is the backward kernel (one launch of
+    ``flash_carry_bwd``), bit-identical from call to call, and within the
+    stated bounds of the twin's closed-form gradient at the saved outputs:
+    bf16 gradients (dq, dk, dv of bf16 operands) within 2^-7 of the
+    largest, the bound of ``test_cuda_mamba2_forward_grads_vs_cpu`` (the
+    tensor-core body takes its products in bf16 with fp32 sums, as
+    FlashAttention-2 does); the fp32 state gradients within 1e-5 of
+    max(1, the largest); the CUDA-core body's fp32 gradients within 1e-4
+    (fp32 sums in another order, the matmul's relative bound of
+    ``tests/test_kernels.py``)."""
+    ins, ints, opts = _bwd_hop(cuda, case)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    diff = [x.clone().requires_grad_(True) for x in ins]
+    outs = fk._FlashCarry.apply(*diff, *ints, opts["causal"],
+                                opts["window"], False, None)
+    ups = [torch.randn(x.shape, generator=g, device=cuda) for x in outs]
+    before = fk.FLASH_CARRY_BWD.launches
+    got = torch.autograd.grad(outs, diff, ups, retain_graph=True)
+    assert fk.FLASH_CARRY_BWD.launches == before + 1
+    again = torch.autograd.grad(outs, diff, ups)
+    want = fk.flash_carry_backward_plain(
+        *ins, *ints, *(o.detach() for o in outs), *ups, **opts)
     torch.cuda.synchronize()
-    for x, y, leaf in zip(got, want, diff):
+    for i, (x, y, z, leaf) in enumerate(zip(got, want, again, diff)):
         assert x.shape == leaf.shape and x.dtype == leaf.dtype
         assert bool(torch.isfinite(x).all())
-        tol = 1e-5 * max(1.0, float(y.float().abs().max()))
+        assert torch.equal(x, z), f"gradient {i} differs between calls"
+        big = float(y.float().abs().max())
+        if x.dtype == torch.bfloat16:
+            tol = 2 ** -7 * big
+        else:
+            tol = (1e-5 if i >= 3 else 1e-4) * max(1.0, big)
         torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
 
 
@@ -714,16 +772,18 @@ def test_cuda_train_step_ring_vs_dense(cuda):
     batch = {"tokens": torch.as_tensor(raw[:, :-1], device=cuda),
              "targets": torch.as_tensor(raw[:, 1:], device=cuda)}
     counts = lambda: (fk.FLASH_CARRY.launches,   # noqa: E731
-                      mk.TILE_MATMUL.launches)
+                      mk.TILE_MATMUL.launches, fk.FLASH_CARRY_BWD.launches)
     before = counts()
     dense, dm = step_lib.make_train_step(cfg, tcfg, 0)(state, batch)
     assert counts() == before
     ring, rm = step_lib.make_train_step(
         replace(cfg, systolic_mode="qlr"), tcfg, 2)(state, batch)
     torch.cuda.synchronize()
-    # per layer: 2 flash hops and 12 tile hops, run again by the remat
-    assert (counts()[0] - before[0], counts()[1] - before[1]) == \
-        (2 * 2 * cfg.num_layers, 2 * 12 * cfg.num_layers)
+    # per layer: 2 flash hops and 12 tile hops, run again by the remat,
+    # and the backward kernel once per flash hop
+    assert tuple(a - b for a, b in zip(counts(), before)) == \
+        (2 * 2 * cfg.num_layers, 2 * 12 * cfg.num_layers,
+         2 * cfg.num_layers)
     assert abs(float(rm["loss"]) - float(dm["loss"])) <= 1e-4
     assert float(rm["grad_norm"]) == pytest.approx(float(dm["grad_norm"]),
                                                    rel=1e-3)

@@ -32,7 +32,7 @@ from repro_torch.roofline import analysis, count, hw
 from repro_torch.train import step as step_lib
 
 ARCHS = configs.ARCHS
-KERNELS = (mk.TILE_MATMUL, fk.FLASH_CARRY, sk.SSD_CHUNKS, ck.CONV2D_3X3,
+KERNELS = (mk.TILE_MATMUL, fk.FLASH_CARRY, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS, ck.CONV2D_3X3,
            ffk.FFT_STAGE)
 
 
@@ -166,15 +166,19 @@ def test_counted_flops_match_hlo_parse(ref, arch, kind):
 # ---------------------------------------------------------------------------
 
 
-def ring_expect(cfg, n_pe: int, passes: int = 1) -> dict:
+def ring_expect(cfg, n_pe: int, passes: int = 1, backward: int = 0) -> dict:
     """Launches of one dense-decoder prefill (``passes`` 2: a training step
     under remat "full"), reckoned from the code as ``chip_smoke.py`` does:
     per layer the QKV ring (n hops x 3 sinks, where the heads and KV heads
-    split n ways), the FFN rings (AG n x 2, RS n) and n flash hops."""
+    split n ways), the FFN rings (AG n x 2, RS n) and n flash hops; with
+    ``backward`` passes, the flash backward once per differentiated hop."""
     qkv = 3 * n_pe if (cfg.num_heads % n_pe == 0
                        and cfg.num_kv_heads % n_pe == 0) else 0
-    return {"tile_matmul": passes * cfg.num_layers * (qkv + 3 * n_pe),
-            "flash_carry": passes * cfg.num_layers * n_pe}
+    out = {"tile_matmul": passes * cfg.num_layers * (qkv + 3 * n_pe),
+           "flash_carry": passes * cfg.num_layers * n_pe}
+    if backward:
+        out["flash_carry_bwd"] = backward * cfg.num_layers * n_pe
+    return out
 
 
 def _launches(counts) -> dict:
@@ -210,7 +214,8 @@ def test_ring_launches_as_reckoned_and_twins_muted(monkeypatch, n_pe):
     assert _launches(got["counts"]) == ring_expect(cfg, n_pe)
     train = dryrun.count_cell(cfg, ShapeConfig("cell", 64, 2, "train"),
                               TrainConfig(), n_pe, "cpu")
-    assert _launches(train["counts"]) == ring_expect(cfg, n_pe, passes=2)
+    assert _launches(train["counts"]) == ring_expect(cfg, n_pe, passes=2,
+                                                     backward=1)
     assert train["counts"]["link_bytes"] > got["counts"]["link_bytes"] > 0
     _hollow_twins(monkeypatch)
     hollow = dryrun.count_cell(cfg, prefill, TrainConfig(), n_pe, "cpu")
@@ -236,7 +241,7 @@ def test_microbatch_multiplier_equals_full_count():
         counts.append(c.aggregate())
     folded, full = counts
     assert folded["by_kernel"] == full["by_kernel"]
-    assert _launches(full) == ring_expect(cfg, 2, passes=2 * 2)
+    assert _launches(full) == ring_expect(cfg, 2, passes=2 * 2, backward=2)
     assert folded["by_op"] == full["by_op"]
     assert folded["hbm_bytes_per_device"] == full["hbm_bytes_per_device"]
     assert folded["link_bytes"] == full["link_bytes"] > 0
@@ -296,6 +301,17 @@ PERF_ROWS = {
             out_dtype=BF,
             **dict(zip(("pairs", "keys"), _flash_live(256, 32, 256)))),
          (0.0507, "bytes"))],
+    # the backward at qwen3-0.6b's and zamba2-1.2b's training hops
+    "flash_carry_bwd": [
+        (lambda: fk.backward_work(
+            _meta(32, 256, 16, 128, dtype=BF),
+            _meta(32, 256, 8, 128, dtype=BF), _meta(32, 16, 256),
+            _meta(32, 16, 256, 128)),
+         (0.1214, "bytes")),
+        (lambda: fk.backward_work(
+            _meta(16, 512, 32, 64, dtype=BF), _meta(16, 512, 32, 64, dtype=BF),
+            _meta(16, 32, 512), _meta(16, 32, 512, 64)),
+         (0.1427, "bytes"))],
     "ssd_chunks": [
         (lambda: sk.work(_meta(256, 8, 256, 64, dtype=BF),
                          _meta(256, 8, 256, 1), _meta(256, 1, 1, 1),
@@ -362,6 +378,14 @@ def _wrapper_calls(dev, fake_mode=None):
             t(2, 4, 3, 64), t(2, dtype=i32), t(2, dtype=i32),
             t(2, dtype=i32), causal=True),
             [(2, 4, 3), (2, 4, 3), (2, 4, 3, 64)]),
+        "flash_carry_bwd": (lambda: fk.flash_carry_backward_cuda(
+            t(2, 3, 4, 64, dtype=BF), t(2, 5, 2, 64, dtype=BF),
+            t(2, 5, 2, 64, dtype=BF), t(2, 4, 3), t(2, 4, 3),
+            t(2, 4, 3, 64), t(2, dtype=i32), t(2, dtype=i32),
+            t(2, dtype=i32), None, t(2, 4, 3), t(2, 4, 3), t(2, 4, 3, 64),
+            t(2, 4, 3), t(2, 4, 3), t(2, 4, 3, 64), causal=True),
+            [(2, 3, 4, 64), (2, 5, 2, 64), (2, 5, 2, 64), (2, 4, 3),
+             (2, 4, 3), (2, 4, 3, 64)]),
         "ssd_chunks": (lambda: sk.ssd_chunks_cuda(
             t(4, 2, 16, 8), t(4, 2, 16, 1), t(4, 1, 1, 1), t(2, 2, 16, 8),
             t(2, 2, 16, 8), nheads=2, ngroups=1),

@@ -20,9 +20,10 @@ SMOKE qwen3-0.6b in fp32 with the reference's own weights (carried by
 
 The ring variants run the emulated ring at the SMOKE widths through the
 kernel wrappers' CPU twins. ``test_kernel_functions_*`` routes the wrappers
-through the ``autograd.Function``s the card path takes (kernel forward,
-twin backward), with the twin standing in for the kernel, so their
-backward and the launches a step makes under remat are held here too.
+through the ``autograd.Function``s the card path takes, with the twins
+standing in for the kernels (the flash hop's backward twin for its
+backward kernel), so their backward and the launches a step makes under
+remat are held here too.
 """
 from __future__ import annotations
 
@@ -46,7 +47,6 @@ from test_torch_reference import (  # noqa: F401 (fixture)
 from repro_torch.configs import TrainConfig
 from repro_torch.data import pipeline as data
 from repro_torch.kernels.flash_attention import kernel as fk
-from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.systolic_matmul import kernel as mk
 from repro_torch.kernels.systolic_matmul import ops as mm_ops
 from repro_torch.models import (
@@ -271,11 +271,15 @@ def test_lm_loss_chunked_vs_reference(smoke, masked):
 
 @pytest.fixture
 def kernel_functions(monkeypatch):
-    """Route the CPU wrappers through ``_TileMatmul`` / ``_FlashCarry``,
-    whose forward calls ``*_cuda``: here the twin, counting launches as
-    the kernel wrappers do."""
-    plain_mm, plain_flash = mk.matmul_plain, fk.flash_carry_plain
-    launches = {"tile_matmul": 0, "flash_carry": 0}
+    """Route the CPU tile-matmul wrapper through ``_TileMatmul``, whose
+    forward calls ``matmul_cuda``: here the twin, counting launches as the
+    kernel wrapper does. ``flash_carry`` goes through ``_FlashCarry`` on
+    the CPU too: its forward and backward twins stand in for the two
+    flash kernels and count their launches."""
+    plain_mm = mk.matmul_plain
+    plain_flash, plain_bwd = fk.flash_carry_plain, \
+        fk.flash_carry_backward_plain
+    launches = {"tile_matmul": 0, "flash_carry": 0, "flash_carry_bwd": 0}
 
     def mm_kernel(a, b, c=None, out_dtype=None, block=0):
         launches["tile_matmul"] += 1
@@ -285,16 +289,14 @@ def kernel_functions(monkeypatch):
         launches["flash_carry"] += 1
         return plain_flash(*args, **kw)
 
-    def flash_fn(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
-                 causal=True, window=0, normalize=False, out_dtype=None):
-        return fk._FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen,
-                                    kv_row, causal, window, normalize,
-                                    out_dtype)
+    def flash_bwd_kernel(*args, **kw):
+        launches["flash_carry_bwd"] += 1
+        return plain_bwd(*args, **kw)
 
     monkeypatch.setattr(mk, "matmul_cuda", mm_kernel)
     monkeypatch.setattr(mk, "matmul_plain", mm_ops._TileMatmul.apply)
-    monkeypatch.setattr(fk, "flash_carry_cuda", flash_kernel)
-    monkeypatch.setattr(flash_ops, "flash_carry", flash_fn)
+    monkeypatch.setattr(fk, "flash_carry_plain", flash_kernel)
+    monkeypatch.setattr(fk, "flash_carry_backward_plain", flash_bwd_kernel)
     return launches
 
 
@@ -315,7 +317,8 @@ def test_kernel_functions_grads_and_launches(smoke, reference_grads,
     # per layer: QKV ring 2 hops x 3 sinks, FFN AG 2 x 2, FFN RS 2; ring
     # attention 2 hops
     assert forward == {"tile_matmul": 12 * cfg.num_layers,
-                       "flash_carry": 2 * cfg.num_layers}
+                       "flash_carry": 2 * cfg.num_layers,
+                       "flash_carry_bwd": 0}
     for k in kernel_functions:
         kernel_functions[k] = 0
     loss, _, grads = step_lib.value_and_grad(model, params,
@@ -323,9 +326,11 @@ def test_kernel_functions_grads_and_launches(smoke, reference_grads,
     assert float(loss) == pytest.approx(want_loss, abs=LOSS_TOL)
     _assert_trees_close(params_to_reference(grads), want_grads,
                         rtol=GRAD_TOL, atol=GRAD_TOL)
-    # the kernels are no aten products, so "selective" recomputes them too
+    # the kernels are no aten products, so "selective" recomputes them too;
+    # the flash backward runs once per hop
     times = 1 if remat == "none" else 2
-    assert kernel_functions == {k: times * v for k, v in forward.items()}
+    assert kernel_functions == {**{k: times * v for k, v in forward.items()},
+                                "flash_carry_bwd": forward["flash_carry"]}
 
 
 # ---------------------------------------------------------------------------

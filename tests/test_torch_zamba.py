@@ -45,7 +45,6 @@ from repro_torch.configs import (
     get_smoke_config,
 )
 from repro_torch.kernels.flash_attention import kernel as fk
-from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import kernel as sk
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.systolic_matmul import kernel as mk
@@ -282,12 +281,17 @@ def test_mamba_lm_refuses_a_ring():
 
 @pytest.fixture
 def kernel_functions(monkeypatch):
-    """Route the CPU wrappers through ``_SSDChunks``, ``_TileMatmul`` and
-    ``_FlashCarry``, whose forward calls ``*_cuda``: here the twin,
-    counting launches as the kernel wrappers do."""
+    """Route the CPU wrappers of ``ssd_chunks`` and ``tile_matmul`` through
+    ``_SSDChunks`` and ``_TileMatmul``, whose forward calls ``*_cuda``:
+    here the twin, counting launches as the kernel wrappers do.
+    ``flash_carry`` goes through ``_FlashCarry`` on the CPU too: its
+    forward and backward twins stand in for the two flash kernels and
+    count their launches."""
     plain_ssd, plain_mm = sk.ssd_chunks_plain, mk.matmul_plain
-    plain_flash = fk.flash_carry_plain
-    launches = {"ssd_chunks": 0, "tile_matmul": 0, "flash_carry": 0}
+    plain_flash, plain_bwd = fk.flash_carry_plain, \
+        fk.flash_carry_backward_plain
+    launches = {"ssd_chunks": 0, "tile_matmul": 0, "flash_carry": 0,
+                "flash_carry_bwd": 0}
 
     def ssd_kernel(*args, **kw):
         launches["ssd_chunks"] += 1
@@ -301,11 +305,9 @@ def kernel_functions(monkeypatch):
         launches["flash_carry"] += 1
         return plain_flash(*args, **kw)
 
-    def flash_fn(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
-                 causal=True, window=0, normalize=False, out_dtype=None):
-        return fk._FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen,
-                                    kv_row, causal, window, normalize,
-                                    out_dtype)
+    def flash_bwd_kernel(*args, **kw):
+        launches["flash_carry_bwd"] += 1
+        return plain_bwd(*args, **kw)
 
     monkeypatch.setattr(sk, "ssd_chunks_cuda", ssd_kernel)
     monkeypatch.setattr(ssd_ops, "ssd_chunks",
@@ -313,8 +315,8 @@ def kernel_functions(monkeypatch):
                         sk._SSDChunks.apply(x, dt, a, b, c, nheads, ngroups))
     monkeypatch.setattr(mk, "matmul_cuda", mm_kernel)
     monkeypatch.setattr(mk, "matmul_plain", mm_ops._TileMatmul.apply)
-    monkeypatch.setattr(fk, "flash_carry_cuda", flash_kernel)
-    monkeypatch.setattr(flash_ops, "flash_carry", flash_fn)
+    monkeypatch.setattr(fk, "flash_carry_plain", flash_kernel)
+    monkeypatch.setattr(fk, "flash_carry_backward_plain", flash_bwd_kernel)
     return launches
 
 
@@ -368,7 +370,7 @@ def test_kernel_functions_zamba_grads_and_launches(smoke, kernel_functions):
         model.loss(params, batch)
     n_super, inner = cfg.n_shared_attn, cfg.attn_every
     forward = {"ssd_chunks": cfg.num_layers, "tile_matmul": n_super * 3 * 2,
-               "flash_carry": n_super * 2}
+               "flash_carry": n_super * 2, "flash_carry_bwd": 0}
     assert kernel_functions == forward
     for k in kernel_functions:
         kernel_functions[k] = 0
@@ -377,7 +379,8 @@ def test_kernel_functions_zamba_grads_and_launches(smoke, kernel_functions):
     _assert_grads(grads, smoke["grads"])
     step = {"ssd_chunks": 2 * cfg.num_layers + n_super * (inner - 1),
             "tile_matmul": 2 * forward["tile_matmul"],
-            "flash_carry": 2 * forward["flash_carry"]}
+            "flash_carry": 2 * forward["flash_carry"],
+            "flash_carry_bwd": forward["flash_carry"]}
     assert kernel_functions == step
 
 
