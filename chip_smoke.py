@@ -186,10 +186,11 @@ non-zero before the result lines are printed:
    with the serve winner against the hand-set backend (32 greedy tokens
    of 8 prompts, token for token, both kernels launched); (e) the cache
    as one ``[autotune-cache]`` JSON line naming the card;
-15. the dry run and the roofline: (a) ``DRY_CELLS``, ten cells of the
+15. the dry run and the roofline: (a) ``DRY_CELLS``, eleven cells of the
    reference's grid covering every shape kind and family (qwen3-0.6b's
    three kinds on the ring of 4 in qlr and its decode on the dense path;
-   mixtral-8x22b and mamba2-1.3b ``long_500k``, zamba2-1.2b
+   mixtral-8x22b and mamba2-1.3b ``long_500k``, mamba2-1.3b ``train_4k``
+   (the SSD backward kernel's launches), zamba2-1.2b
    ``prefill_32k``, whisper-tiny ``decode_32k`` on a ring of 2,
    deepseek-v2-lite-16b ``decode_32k``, internvl2-1b ``prefill_32k`` on a
    ring of 2), dry-run at full width on fake tensors on the card's device
@@ -232,10 +233,12 @@ The last three lines of standard output are the kernels' JSON, the card's
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -272,12 +275,15 @@ VLM_BATCH, VLM_SEQ = 4, 2048       # (a): internvl2 prefill, 4 x 2048
 MLA_BATCH, MLA_SEQ = 2, 2048       # (b): deepseek prefill, 2 x 2048
 WHISPER_BATCH, WHISPER_SEQ = 16, 448   # (c): 16 x 1500 frames, 448 tokens
 # profiler ranges around the backwards of the autograd.Functions (the flash
-# hop's runs its backward kernel, the other two their twins' gradients)
+# hop's and the SSD chunk pass's run their backward kernels, the tile
+# matmul's its products)
 BACKWARD_LABELS = ("flash_carry_backward", "tile_matmul_backward",
                    "ssd_chunks_backward")
-# the kernel a range launches: its ctypes launches fall in no host range,
-# so ``profile`` adds the kernel's device time to the range's
-LABEL_KERNELS = {"flash_carry_backward": "flash_carry_bwd_kernel"}
+# the kernels a range launches: their ctypes launches fall in no host range,
+# so ``profile`` adds the kernels' device time to the range's (the SSD
+# backward's two passes: ssd_bwd_kernel[_mma], ssd_bwd_reduce)
+LABEL_KERNELS = {"flash_carry_backward": "flash_carry_bwd_kernel",
+                 "ssd_chunks_backward": "ssd_bwd_"}
 
 
 def log(msg: str) -> None:
@@ -354,23 +360,27 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
     return ms
 
 
-def profiled_bodies(fn, only: str, attempts: int = 5) -> str | None:
+def profiled_bodies(fn, only: str, attempts: int = 5,
+                    bodies: int = 1) -> str | None:
     """The kernel bodies (``demangled_body``) whose names contain ``only``
-    that the profiler records for one call of ``fn``, joined by ", "; None
-    when ``attempts`` sessions record none."""
+    that the profiler records for one call of ``fn`` (which launches
+    ``bodies`` of them), joined by ", "; None when ``attempts`` sessions
+    record none. A session may lose a launch, so the bodies are gathered
+    over sessions until ``bodies`` of them are seen."""
     import torch
     from torch.profiler import ProfilerActivity
+    names = set()
     for _ in range(attempts):
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = {demangled_body(name)
-                 for name, _, _ in _kernel_rows(prof.key_averages())
-                 if only in name}
-        if names:
-            return ", ".join(sorted(names))
-    return None
+        names |= {demangled_body(name)
+                  for name, _, _ in _kernel_rows(prof.key_averages())
+                  if only in name}
+        if len(names) >= bodies:
+            break
+    return ", ".join(sorted(names)) if names else None
 
 
 def demangled_body(name: str) -> str:
@@ -864,7 +874,8 @@ def check_flash_backward(torch, fk, dev, cases):
                                               pairs=int(mask.sum()))
         del mask
         b_ms, b_by = bound(moved, flops, kind)
-        body = profiled_bodies(call, "flash_carry_bwd_kernel")
+        # the two passes: one body each
+        body = profiled_bodies(call, "flash_carry_bwd_kernel", bodies=2)
         d = q.shape[-1]
         if q.dtype == k.dtype == torch.bfloat16 and q.shape[1] > 1 \
                 and d in (64, 128):
@@ -1226,22 +1237,37 @@ SSD_CASES = {"prefill": (4, 64, 1, 2048, 256, 64, 128, -1.0, 0.0),
              "overflow": (1, 8, 1, 512, 256, 64, 128, -4.0, 1.0)}
 
 
-def check_ssd(torch, sk, dev):
+# the SSD backward kernel's cases (phase 2): mamba2-1.3b's and zamba2's
+# training shapes, two groups, and the overflow case
+SSD_BWD_CASES = ("prefill", "zamba_prefill", "groups2", "overflow")
+
+
+def ssd_inputs(torch, g, dev, dtype, case):
+    """x, dt, a, b, c of an ``SSD_CASES`` case in ``dtype``, from the
+    generator ``g``."""
     import torch.nn.functional as F
+    bsz, h, grp, seq, l, p, n, a_val, shift = SSD_CASES[case]
+    nc, bh = seq // l, bsz * h
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    x = rnd(bh, nc, l, p).to(dtype)
+    dt = F.softplus(rnd(bh, nc, l, 1) + shift)
+    a_h = torch.full((h,), a_val, device=dev) if a_val is not None \
+        else -torch.exp(rnd(h) * 0.3)
+    a = a_h.repeat(bsz).reshape(bh, 1, 1, 1)
+    b = (rnd(bsz * grp, nc, l, n) * 0.3).to(dtype)
+    c = (rnd(bsz * grp, nc, l, n) * 0.3).to(dtype)
+    return x, dt, a, b, c
+
+
+def check_ssd(torch, sk, dev):
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
     for case, (bsz, h, grp, seq, l, p, n, a_val, shift) in SSD_CASES.items():
         nc, bh = seq // l, bsz * h
         for dtype in (torch.float32, torch.bfloat16):
-            def rnd(*shape):
-                return torch.randn(*shape, generator=g, device=dev)
-            x = rnd(bh, nc, l, p).to(dtype)
-            dt = F.softplus(rnd(bh, nc, l, 1) + shift)
-            a_h = torch.full((h,), a_val, device=dev) if a_val is not None \
-                else -torch.exp(rnd(h) * 0.3)
-            a = a_h.repeat(bsz).reshape(bh, 1, 1, 1)
-            b = (rnd(bsz * grp, nc, l, n) * 0.3).to(dtype)
-            c = (rnd(bsz * grp, nc, l, n) * 0.3).to(dtype)
+            x, dt, a, b, c = ssd_inputs(torch, g, dev, dtype, case)
             opts = dict(nheads=h, ngroups=grp)
             got = sk.ssd_chunks_cuda(x, dt, a, b, c, **opts)
             want = sk.ssd_chunks_plain(x, dt, a, b, c, **opts)
@@ -1269,13 +1295,7 @@ def check_ssd(torch, sk, dev):
                 torch.matmul(m, xf)
                 torch.matmul(xf.transpose(-1, -2), bf)
             name = f"{case}_{'fp32' if dtype == torch.float32 else 'bf16'}"
-            bwd = None
-            if name == "zamba_prefill_bf16":
-                # the training backward (phase 12 (c)): the twin's gradient
-                bwd = backward_ms(torch, lambda *t: sk._SSDChunks.apply(
-                    *t, h, grp), (x, dt, a, b, c), range(5))
             rec = {"case": name, "max_abs_err": max(errs), "errs": errs,
-                   "twin_backward_ms": bwd,
                    "tol": tol, "ok": finite and max(errs) <= tol,
                    "ms": time_ms(lambda: sk.ssd_chunks_cuda(
                        x, dt, a, b, c, **opts), iters=10,
@@ -1297,10 +1317,83 @@ def check_ssd(torch, sk, dev):
                 f"reference kernel's work "
                 f"{rec['bound_reference_ms']:.4f}), library n/a, three "
                 f"products alone (torch.matmul fp32, yardstick) "
-                f"{rec['products_ms']:.4f} ms, twin backward {bwd}"
-                + ratio_text(rec))
+                f"{rec['products_ms']:.4f} ms" + ratio_text(rec))
             out.append(rec)
             del x, dt, a, b, c, got, want, xf, bf, cf, m
+    return out
+
+
+def check_ssd_backward(torch, sk, dev):
+    """The backward kernel at ``SSD_BWD_CASES`` in fp32 and bf16 against
+    the twin's autograd taken in float64 (``cum`` the same fp32 values):
+    bf16 dx, dB and dC within 2^-7 of the largest (the products take bf16
+    operands), ddt and da and every fp32 gradient within 1e-4 of max(1,
+    the largest); finite; two calls bit-identical. The oracle is float64
+    because da is ill-conditioned (an error in dcum[t] reaches it times
+    sum_{s<=t} dt[s]): at the overflow case the fp32 twin's own da misses
+    1e-4 of its largest against the float64 value
+    (``tests/test_torch_ssd_backward.py``). Timed beside its bound,
+    the closed-form twin and the twin's autograd in fp32 (the card's SSD
+    backward before the kernel)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = []
+    for case in SSD_BWD_CASES:
+        bsz, h, grp, seq, l, p, n, _, _ = SSD_CASES[case]
+        nc, bh = seq // l, bsz * h
+        opts = dict(nheads=h, ngroups=grp)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(torch, g, dev, dtype, case)
+            ups = [torch.randn(shape, generator=g, device=dev) for shape in
+                   ((bh, nc, l, p), (bh, nc, p, n), (bh, nc, l, 1))]
+            call = lambda: sk.ssd_chunks_backward_cuda(  # noqa: E731
+                *args, *ups, **opts)
+            before = sk.SSD_CHUNKS_BWD.launches
+            got, again = call(), call()
+            launched = sk.SSD_CHUNKS_BWD.launches - before
+            wide = [t.double().requires_grad_(True) for t in args]
+            want = torch.autograd.grad(sk.ssd_chunks_plain(*wide, **opts),
+                                       wide, [u.double() for u in ups])
+            del wide
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, w) for u, w in zip(got, again))
+            ok, errs, tols = same and launched == 2, [], []
+            for x, y in zip(got, want):
+                big = float(y.abs().max())
+                tol = 2 ** -7 * big if x.dtype == torch.bfloat16 else \
+                    1e-4 * max(1.0, big)
+                err = float((x.double() - y).abs().max())
+                ok = ok and err <= tol and bool(torch.isfinite(x).all())
+                errs.append(err)
+                tols.append(tol)
+            del got, again, want
+            flops, moved, kind = sk.backward_work(*args, **opts)
+            b_ms, b_by = bound(moved, flops, kind)
+
+            def twin_autograd():
+                leaves = [t.detach().requires_grad_(True) for t in args]
+                return torch.autograd.grad(
+                    sk.ssd_chunks_plain(*leaves, **opts), leaves, ups)
+            name = f"{case}_{'fp32' if dtype == torch.float32 else 'bf16'}"
+            rec = {"case": name, "max_abs_err": max(errs), "errors": errs,
+                   "tols": tols, "ok": ok, "bit_identical": same,
+                   "ms": time_ms(call, iters=10, only="ssd_bwd_"),
+                   "plain_ms": time_ms(lambda: sk.ssd_chunks_backward_plain(
+                       *args, *ups, **opts), iters=3),
+                   "twin_backward_ms": time_ms(twin_autograd, iters=3),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "flops": flops, "bytes": moved,
+                   "shape": {"x": list(args[0].shape),
+                             "b": list(args[3].shape), "dtype": str(dtype)}}
+            log(f"[kernels] ssd_chunks_bwd {name}: errors (dx, ddt, da, db, "
+                f"dc) {[f'{e:.3e}' for e in errs]} (tols "
+                f"{[f'{t:.3e}' for t in tols]}), bit-identical {same}: "
+                f"kernel {rec['ms']:.4f} ms, closed-form twin "
+                f"{rec['plain_ms']:.4f} ms, twin's autograd (fp32) "
+                f"{rec['twin_backward_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by} at the {kind} peak), library n/a"
+                + ratio_text(rec))
+            out.append(rec)
+            del args, ups
     return out
 
 
@@ -1329,12 +1422,15 @@ def ring_expect(cfg, n_pe: int, passes: int = 1) -> dict:
 
 def with_backward(expect: dict, remat: str) -> dict:
     """A training step's launches ``expect`` (forward and remat recompute)
-    with the flash backward kernel's: once per hop the step differentiates
-    (the forward's flash launches; every remat but "none" runs each hop a
-    second time, the kernels being no aten products)."""
+    with the backward kernels': the flash backward's once per hop the step
+    differentiates (the forward's flash launches; every remat but "none"
+    runs each hop a second time, the kernels being no aten products), the
+    SSD backward's as ``expect`` reckons it (once per Mamba2 layer; none
+    without one)."""
     passes = 1 if remat == "none" else 2
     return {**expect,
-            "flash_carry_bwd": expect.get("flash_carry", 0) // passes}
+            "flash_carry_bwd": expect.get("flash_carry", 0) // passes,
+            "ssd_chunks_bwd": expect.get("ssd_chunks_bwd", 0)}
 
 
 def serve_full_width(torch, kernels, dev, arch: str = "qwen3-0.6b",
@@ -1475,7 +1571,8 @@ def profile(torch, fn, top: int = 6, labels=(), warm: bool = True) -> dict:
            "kernel_ms": {name: sum(ms for k, ms, _ in rows if name in k)
                          for name in ("flash_carry_kernel",
                                       "flash_carry_bwd_kernel",
-                                      "tile_matmul_kernel")},
+                                      "tile_matmul_kernel",
+                                      "ssd_chunks_kernel", "ssd_bwd_")},
            "label_ms": {label: label_ms(prof, label) + sum(
                ms for k, ms, _ in rows if label in LABEL_KERNELS
                and LABEL_KERNELS[label] in k) for label in labels}}
@@ -2355,6 +2452,7 @@ def moe_train(torch, kernels, dev):
     hop), the backwards' device time."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.models import build_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as step_lib
@@ -2369,7 +2467,7 @@ def moe_train(torch, kernels, dev):
                             * (qkv_ring_hops(cfg, N_PE) + 3),
                             "flash_carry": 2 * cfg.num_layers * N_PE},
                            cfg.remat)
-    kernels = (*kernels, fk.FLASH_CARRY_BWD)
+    kernels = (*kernels, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS_BWD)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k.name: k.launches for k in kernels}
@@ -2507,7 +2605,8 @@ def zamba_expect(cfg, train: bool = False) -> dict:
     the ring). The backward recomputes each super-block up to its last
     Mamba2 layer's input (the shared block and ``attn_every - 1`` layers:
     a non-reentrant checkpoint stops once every tensor it saved is back),
-    then each Mamba2 layer once for its own checkpoint."""
+    then each Mamba2 layer once for its own checkpoint, and launches the
+    SSD backward kernel once per Mamba2 layer."""
     fwd = {"ssd_chunks": cfg.num_layers,
            "tile_matmul": cfg.n_shared_attn * qkv_ring_hops(cfg, N_PE),
            "flash_carry": cfg.n_shared_attn * N_PE}
@@ -2515,6 +2614,7 @@ def zamba_expect(cfg, train: bool = False) -> dict:
         return fwd
     return {"ssd_chunks": 2 * cfg.num_layers
             + cfg.n_shared_attn * (cfg.attn_every - 1),
+            "ssd_chunks_bwd": cfg.num_layers,
             "tile_matmul": 2 * fwd["tile_matmul"],
             "flash_carry": 2 * fwd["flash_carry"]}
 
@@ -2606,8 +2706,8 @@ def zamba_parity(torch, kernels, dev):
 def mamba_grads_vs_cpu(torch, sk, dev):
     """(c) fault 1 on the card: ``torch.autograd.grad`` of ``mamba2_forward``
     at zamba2-1.2b's layer shape (d 2048, 64 heads of 64, N 64, chunk 256),
-    1 x ZAMBA_GRAD_SEQ tokens, on the card (the kernel forward,
-    ``_SSDChunks``' backward) against the same call on the CPU (the twin
+    1 x ZAMBA_GRAD_SEQ tokens, on the card (the forward and backward
+    kernels, one launch each) against the same call on the CPU (the twins
     throughout), relative to each gradient's largest value: fp32 1e-4,
     bf16 2e-2 (``tests/test_torch_ssm.py``)."""
     from repro_torch.configs import get_config
@@ -2635,9 +2735,10 @@ def mamba_grads_vs_cpu(torch, sk, dev):
                                       up.to(y.device, y.dtype))
             return [t.float().cpu() for t in got]
 
-        before = sk.SSD_CHUNKS.launches
+        before = sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches
         got = grads(_to_device(params, dev), x.to(dev))
-        assert sk.SSD_CHUNKS.launches == before + 1
+        assert (sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches) == \
+            (before[0] + 1, before[1] + 1)
         want = grads(params, x)
         errs = {}
         for name, a, b in zip(["x", *params], got, want):
@@ -2817,6 +2918,7 @@ def olmo_train_launcher(torch, kernels, dev):
     import signal
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.launch import train as launch
     out = ROOT / "build" / "olmo_train"
     shutil.rmtree(out, ignore_errors=True)
@@ -2833,7 +2935,7 @@ def olmo_train_launcher(torch, kernels, dev):
     per_step = with_backward(
         ring_expect(cfg, N_PE, passes=1 if cfg.remat == "none" else 2),
         cfg.remat)
-    kernels = (*kernels, fk.FLASH_CARRY_BWD)
+    kernels = (*kernels, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS_BWD)
     log(f"[olmo-train] reckoned per step ({OLMO_TRAIN_LAYERS} layers, QKV "
         f"ring {'runs' if qkv_ring else 'refused'}, remat {cfg.remat}): "
         f"{per_step}")
@@ -3055,25 +3157,58 @@ def vlm_parity(torch, kernels, dev):
                        ring_expect(cfg, VLM_NPE))
 
 
+# the twins the autograd.Functions look up as module globals: none may run
+# on the card in a training step
+FUNCTION_TWINS = (
+    ("repro_torch.kernels.ssd.kernel", "ssd_chunks_plain"),
+    ("repro_torch.kernels.ssd.kernel", "ssd_chunks_backward_plain"),
+    ("repro_torch.kernels.flash_attention.kernel", "flash_carry_plain"),
+    ("repro_torch.kernels.flash_attention.kernel",
+     "flash_carry_backward_plain"))
+
+
+@contextmanager
+def card_twin_calls(torch):
+    """Count, in the dict yielded, the calls of ``FUNCTION_TWINS`` that get
+    a CUDA tensor."""
+    calls, saved = {}, []
+    for module, name in FUNCTION_TWINS:
+        mod = importlib.import_module(module)
+        plain = getattr(mod, name)
+
+        def counted(*args, _plain=plain, _name=name, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in args):
+                calls[_name] = calls.get(_name, 0) + 1
+            return _plain(*args, **kw)
+        saved.append((mod, name, plain))
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, plain in saved:
+            setattr(mod, name, plain)
+
+
 def train_steps(torch, kernels, cfg, n_pe, batches, dev, expect, tag,
                 check=None, profiled=None):
     """``make_train_step`` (AdamW at a constant 3e-4, fp32 masters, seed 0)
     over ``batches``, at least two: finite losses and gradient norms,
-    launches per step as ``expect`` and, once per differentiated flash hop,
-    the flash backward kernel's (``with_backward``), no call of a flash
-    twin on the card. The step time and rate reported are
+    launches per step as ``expect`` and the backward kernels' (once per
+    differentiated flash hop and Mamba2 layer: ``with_backward``), no call
+    of a twin on the card. The step time and rate reported are
     the last step's: the first warms the allocator and the kernels'
     launch paths. ``check(model, params, batch)`` first sees the initial
     parameters and the first batch; with a ``profiled`` batch, one more
     step is profiled. Returns the result."""
     from repro_torch.configs import TrainConfig
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.models import build_model
     from repro_torch.train import step as step_lib
     from repro_torch.train.optimizer import tree_leaves
     assert len(batches) >= 2, "a step's time needs a warm-up step before it"
-    if fk.FLASH_CARRY_BWD not in kernels:
-        kernels = (*kernels, fk.FLASH_CARRY_BWD)
+    kernels = (*kernels, *(k for k in (fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS_BWD)
+                           if k not in kernels))
     expect = with_backward(expect, cfg.remat)
     tcfg = TrainConfig(warmup_steps=0, schedule="constant",
                        learning_rate=3e-4)
@@ -3084,16 +3219,18 @@ def train_steps(torch, kernels, cfg, n_pe, batches, dev, expect, tag,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_s, per_step = [], [], [], []
-    for b in batches:
-        before = {k.name: k.launches for k in kernels}
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, b)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-        per_step.append({k.name: k.launches - before[k.name]
-                         for k in kernels})
+    with card_twin_calls(torch) as twin_calls:
+        for b in batches:
+            before = {k.name: k.launches for k in kernels}
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            per_step.append({k.name: k.launches - before[k.name]
+                             for k in kernels})
+    assert not twin_calls, f"twins ran on the card: {twin_calls}"
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     log(f"[{tag}] {len(batches)} steps in {sum(step_s):.1f} s")
@@ -3455,8 +3592,9 @@ def phase13(torch, kernels, dev):
     just before it (the flash backward kernel's too); returns {run:
     result} and {path: launches}."""
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     launches, out = {}, {}
-    every = (*kernels, fk.FLASH_CARRY_BWD)
+    every = (*kernels, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS_BWD)
 
     def counted(name, fn):
         for k in every:
@@ -3914,6 +4052,7 @@ DRY_CELLS = [("qwen3-0.6b", "decode_32k", "baseline", 0),
              ("qwen3-0.6b", "decode_32k", "qlr", 4),
              ("mixtral-8x22b", "long_500k", "qlr", 4),
              ("mamba2-1.3b", "long_500k", "baseline", 0),
+             ("mamba2-1.3b", "train_4k", "baseline", 0),
              ("zamba2-1.2b", "prefill_32k", "qlr", 4),
              ("whisper-tiny", "decode_32k", "qlr", 2),
              ("deepseek-v2-lite-16b", "decode_32k", "qlr", 4),
@@ -4157,6 +4296,7 @@ def example_quickstart(torch, kernels, dev):
     from repro_torch.configs import get_config
     from repro_torch.examples import quickstart
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
     cfg = replace(get_config("qwen3-0.6b"), systolic_mode="qlr")
     marks = []
 
@@ -4164,7 +4304,8 @@ def example_quickstart(torch, kernels, dev):
         torch.cuda.synchronize()
         marks.append((name, launch_counts(kernels), time.perf_counter()))
 
-    kernels = (*kernels, fk.FLASH_CARRY_BWD)
+    forward = kernels
+    kernels = (*kernels, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS_BWD)
     out = quickstart.run(cfg, n_pe=N_PE, device=dev, on_stage=stage)
     per_stage, seconds = {}, {}
     for (name, c0, t0), (_, c1, t1) in zip(marks, marks[1:]):
@@ -4175,7 +4316,7 @@ def example_quickstart(torch, kernels, dev):
     assert np.isfinite(out["loss"]) and np.isfinite(out["step_loss"])
     assert abs(out["loss"] - out["ln_vocab"]) <= 1.0, out["loss"]
     passes = 1 if cfg.remat == "none" else 2
-    for k in kernels[:-1]:
+    for k in forward:
         fwd = per_stage["loss"][k.name]
         assert fwd > 0, f"{k.name} never launched in the quickstart's loss"
         assert per_stage["train_step"][k.name] == passes * fwd, \
@@ -4183,6 +4324,9 @@ def example_quickstart(torch, kernels, dev):
     assert per_stage["loss"]["flash_carry_bwd"] == 0
     assert per_stage["train_step"]["flash_carry_bwd"] == \
         per_stage["loss"]["flash_carry"], per_stage
+    # qwen3 has no Mamba2 layer
+    assert per_stage["loss"]["ssd_chunks_bwd"] == 0
+    assert per_stage["train_step"]["ssd_chunks_bwd"] == 0, per_stage
     assert len(out["tokens"]) == quickstart.DECODE_TOKENS
     assert all(0 <= t < cfg.vocab_size for t in out["tokens"])
     return out
@@ -4319,7 +4463,7 @@ def example_topologies(torch, kernels, dev):
             summary[section]["identical"] = recs["identical"]
             assert recs["identical"], f"{section}: modes differ"
     for k in kernels:           # no Mamba2 layer, no backward here
-        if k.name not in ("ssd_chunks", "flash_carry_bwd"):
+        if k.name not in ("ssd_chunks", "ssd_chunks_bwd", "flash_carry_bwd"):
             assert launched[k.name] > 0, f"{k.name} never launched"
     summary["launches"] = launched
     log(f"[examples] systolic_topologies: {json.dumps(summary)}")
@@ -4468,8 +4612,15 @@ def main() -> int:
     conv = check_conv(torch, ck, dev)
     ffts = check_fft(torch, ffk, fft, dev)
     ssds = check_ssd(torch, sk, dev)
+    ssd_bwd = check_ssd_backward(torch, sk, dev)
+    for rec in ssds:            # each training shape's backward beside it
+        for b in ssd_bwd:
+            if b["case"] == rec["case"]:
+                rec["backward"] = {k: b[k] for k in (
+                    "ms", "bound_ms", "bound_by", "max_abs_err", "plain_ms",
+                    "twin_backward_ms")}
     bad = [r["case"] for r in flash + flash_bwd + mm + blocks + conv + ffts
-           + ssds if not r["ok"]]
+           + ssds + ssd_bwd if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
 
@@ -4670,6 +4821,9 @@ def main() -> int:
               mm + blocks, "ffn_ag_hop"),
         entry(sk.SSD_CHUNKS, "src/repro_torch/csrc/ssd_chunks.cu",
               "src/repro/kernels/ssd/kernel.py:74", ssds, "prefill_bf16"),
+        # no Pallas kernel: jnp autodiff of the reference's chunked SSD
+        entry(sk.SSD_CHUNKS_BWD, "src/repro_torch/csrc/ssd_chunks_bwd.cu",
+              "src/repro/models/ssm.py:81", ssd_bwd, "zamba_prefill_bf16"),
         entry(ck.CONV2D_3X3, "src/repro_torch/csrc/conv2d_3x3.cu",
               "src/repro/kernels/conv2d/kernel.py:50", conv, "card_fp32"),
         entry(ffk.FFT_STAGE, "src/repro_torch/csrc/fft_stage.cu",

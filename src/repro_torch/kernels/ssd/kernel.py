@@ -16,15 +16,19 @@ prefix sums taken in float64, so kernel and twin get the same ``cum``
 whatever order each sums in (``cum`` is differenced and exponentiated,
 which would amplify an order's rounding). The causal decay is a select,
 never a product with a mask: above the diagonal ``exp(cum[t] - cum[s])``
-overflows at realistic ``dt``. ``ssd_chunks`` takes the twin for tensors
-on the CPU and launches the kernel (or raises) otherwise, through
-``_SSDChunks``: the kernel's forward, and for its backward the gradient of
-the twin (the reference has no backward kernel: its VJP is jnp autodiff).
+overflows at realistic ``dt``.
 
-The kernel has two bodies behind one launch: bf16 inputs run on the tensor
-cores (``mma.sync``, with M = (C B^T) * decay * dt and x * w each split into
-two bf16 halves, so that the fp32 twin's 1e-4 bound holds), fp32 inputs on
-the CUDA cores.
+``ssd_chunks`` goes through ``_SSDChunks`` on every device: its forward
+takes the kernel for CUDA tensors and the twin for CPU tensors, its
+backward the backward kernel (``csrc/ssd_chunks_bwd.cu``) or its closed-form
+twin ``ssd_chunks_backward_plain``. The reference has no backward kernel:
+its gradient is jnp autodiff of ``repro/models/ssm.ssd_chunked``, which the
+backward kernel computes.
+
+The forward kernel has two bodies behind one launch: bf16 inputs run on the
+tensor cores (``mma.sync``, with M = (C B^T) * decay * dt and x * w each
+split into two bf16 halves, so that the fp32 twin's 1e-4 bound holds), fp32
+inputs on the CUDA cores. The backward kernel has the same two bodies.
 """
 from __future__ import annotations
 
@@ -46,6 +50,11 @@ SSD_CHUNKS = Kernel("ssd_chunks", {
     # x, dt, a, b, c, y, states, expcum, BH, NC, L, P, N, nheads, ngroups,
     # dtype, stream
     "ssd_chunks": [_P] * 8 + [_I] * 8 + [_P],
+})
+SSD_CHUNKS_BWD = Kernel("ssd_chunks_bwd", {
+    # x, dt, a, b, c, gy, gs, ge, dx, ddt, da, db, dc, scratch (db, dc per
+    # head; da per chunk), BH, NC, L, P, N, nheads, ngroups, dtype, stream
+    "ssd_chunks_bwd": [_P] * 16 + [_I] * 8 + [_P],
 })
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P, MAX_N = 64, 128          # the kernel's register micro tiles
@@ -96,16 +105,37 @@ def work(x, dt, a, b, c, *, nheads: int, ngroups: int):
     return ssd_flops(bh, bg, nc, l, p, n)[0], moved, kind
 
 
+def backward_work(x, dt, a, b, c, *, nheads: int, ngroups: int):
+    """(operations, bytes, type) of one backward launch (its two passes).
+    Operations: C Bᵀ on the causal triangle once per (group row, chunk);
+    per (head row, chunk) the triangles of gy xᵀ, Mᵀ gy, dCB B and dCBᵀ C,
+    and the two full products B gsᵀ and x gs. Bytes: the five inputs and
+    the three fp32 cotangents read once, the five gradients written once.
+    On the tensor cores for bf16."""
+    bh, nc, l, p = x.shape
+    bg, n = b.shape[0], b.shape[-1]
+    tri = l * (l + 1) // 2
+    flops = bg * nc * 2 * tri * n + bh * nc * (2 * tri * (2 * p + 2 * n)
+                                               + 4 * l * p * n)
+    moved = 2 * count.nbytes(x, dt, a, b, c) + 4 * bh * nc * (l * p + p * n + l)
+    kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    return flops, moved, kind
+
+
 def ssd_chunks_plain(x, dt, a, b, c, *, nheads: int, ngroups: int):
-    """The reference kernel's body batched over (BH, NC), in fp32."""
+    """The reference kernel's body batched over (BH, NC), in fp32; in
+    float64 for float64 x (the card tests' oracle of the backward kernel,
+    with ``cum`` the same fp32 values)."""
     _check(x, dt, a, b, c, nheads, ngroups)
     bh, nc, l, _ = x.shape
     rows = group_rows(bh, nheads, ngroups, x.device)
-    xf = x.float()
-    dtf = dt.float()[..., 0]                                  # [BH,NC,L]
-    bf, cf = b.float(), c.float()
-    da = dtf * a.float().reshape(bh, 1, 1)
-    cum = torch.cumsum(da.double(), dim=-1).float()
+    wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(wide)
+    dt32 = dt.float()[..., 0]                                 # [BH,NC,L]
+    bf, cf = b.to(wide), c.to(wide)
+    da = dt32 * a.float().reshape(bh, 1, 1)
+    cum = torch.cumsum(da.double(), dim=-1).float().to(wide)
+    dtf = dt32.to(wide)
     diff = cum[..., :, None] - cum[..., None, :]
     mask = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
     # exp of -inf above the diagonal: the same zeros as a select after the
@@ -119,22 +149,29 @@ def ssd_chunks_plain(x, dt, a, b, c, *, nheads: int, ngroups: int):
     return y, states, torch.exp(cum)[..., None]
 
 
+def _check_kernel(name: str, x, dt, a, b, c):
+    """Raise unless the CUDA kernels take these operands: x, b and c fp32
+    or bf16 alike, dt and a fp32, P and N within the register tiles."""
+    if x.dtype not in DTYPE_CODES or b.dtype != x.dtype \
+            or c.dtype != x.dtype:
+        raise TypeError(f"{name}: x/b/c must share fp32 or bf16, got "
+                        f"{x.dtype}, {b.dtype}, {c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"{name}: dt and a must be fp32, got "
+                        f"{dt.dtype}, {a.dtype}")
+    p, n = x.shape[-1], b.shape[-1]
+    if p > MAX_P or n > MAX_N:
+        raise ValueError(f"{name}: headdim {p} > {MAX_P} or state {n} > "
+                         f"{MAX_N} is not taken by the kernel")
+
+
 def ssd_chunks_cuda(x, dt, a, b, c, *, nheads: int, ngroups: int):
     """One launch of the CUDA kernel over every (head, chunk)."""
     require_cuda_tensors("ssd_chunks", x, dt, a, b, c)
     _check(x, dt, a, b, c, nheads, ngroups)
-    if x.dtype not in DTYPE_CODES or b.dtype != x.dtype \
-            or c.dtype != x.dtype:
-        raise TypeError(f"ssd_chunks: x/b/c must share fp32 or bf16, got "
-                        f"{x.dtype}, {b.dtype}, {c.dtype}")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise TypeError(f"ssd_chunks: dt and a must be fp32, got "
-                        f"{dt.dtype}, {a.dtype}")
+    _check_kernel("ssd_chunks", x, dt, a, b, c)
     bh, nc, l, p = x.shape
     n = b.shape[-1]
-    if p > MAX_P or n > MAX_N:
-        raise ValueError(f"ssd_chunks: headdim {p} > {MAX_P} or state {n} > "
-                         f"{MAX_N} is not taken by the kernel")
     x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty(bh, nc, l, p, **f32)
@@ -152,33 +189,149 @@ def ssd_chunks_cuda(x, dt, a, b, c, *, nheads: int, ngroups: int):
     return y, states, expcum
 
 
-class _SSDChunks(torch.autograd.Function):
-    """Forward: the CUDA kernel. Backward: autograd of the plain twin,
+def ssd_chunks_backward_plain(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
+                              ngroups: int):
+    """The gradient of ``ssd_chunks_plain`` in closed form: (dx, ddt, da,
+    db, dc) in the leaves' types for the cotangents (gy, gs, ge) of its
+    outputs (y, states, expcum), a None cotangent counting as zero. Per
+    head row and chunk, with D the causal decay, CB = C Bᵀ, M = CB ⊙ D ⊙
+    dt_s and w_s = exp(cum[L-1] - cum[s]) dt_s:
+
+      dM = tril(gy xᵀ), Q = dM ⊙ M, dCB = dM ⊙ D ⊙ dt_s, u = B gsᵀ
+      dx = Mᵀ gy + w ⊙ u,  dC = dCB B,  dB = dCBᵀ C + w ⊙ (x gs)
+      v_s = Σ_p x_sp u_sp
+      dcum = rowsum(Q) - colsum(Q) - v w + [t = L-1] Σ v w + ge exp(cum)
+      R_s = Σ_{t>=s} dcum_t (in float64, as autograd of the float64 cumsum)
+      ddt_s = Σ_t dM_ts CB_ts D_ts + v_s exp(cum[L-1] - cum[s]) + a R_s
+      da = Σ_chunks Σ_s dt_s R_s
+
+    dB and dC of a group row sum those of its heads. ``da`` is
+    ill-conditioned: every R_s sums the dcum of the rows after s, so one
+    ulp of a dcum moves ``da`` by about L NC dt ulps. dcum's parts are
+    therefore formed and added as autograd of the twin forms and adds them
+    (products in its order, the parts in the order its engine sums them),
+    which gives autograd's fp32 bits."""
+    _check(x, dt, a, b, c, nheads, ngroups)
+    bh, nc, l, p = x.shape
+    n = b.shape[-1]
+    rows = group_rows(bh, nheads, ngroups, x.device)
+    xf = x.float()
+    dtf = dt.float()[..., 0]                                  # [BH,NC,L]
+    bf, cf = b.float()[rows], c.float()[rows]                 # [BH,NC,L,N]
+    af = a.float().reshape(bh, 1, 1)
+    gy = torch.zeros_like(xf) if gy is None else gy.float()
+    gs = torch.zeros(bh, nc, p, n, device=x.device) if gs is None \
+        else gs.float()
+    ge = torch.zeros_like(dtf) if ge is None else ge.float()[..., 0]
+    cum = torch.cumsum((dtf * af).double(), dim=-1).float()
+    mask = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(
+        mask, cum[..., :, None] - cum[..., None, :], float("-inf")))
+    cb = torch.matmul(cf, bf.transpose(-1, -2))
+    cbd = cb * decay
+    m = cbd * dtf[..., None, :]
+    tail = torch.exp(cum[..., -1:] - cum)
+    # dM = gy xᵀ; above the diagonal it only ever meets D = 0
+    dm = torch.matmul(gy, xf.transpose(-1, -2))
+    gx = dm * dtf[..., None, :]
+    dcb = gx * decay
+    q = torch.where(mask, gx * cb * decay, 0.0)   # dM ⊙ M
+    u = torch.matmul(gs, bf.transpose(-1, -2)).transpose(-1, -2)
+    v = (u * xf).sum(-1)
+    vw = v * dtf * tail
+    dcum = ge * torch.exp(cum) - vw
+    dcum[..., -1] += vw.sum(-1)
+    dcum = dcum + (-q).sum(-2) + q.sum(-1)
+    r = dcum.double().flip(-1).cumsum(-1).flip(-1).float()
+    dx = torch.matmul(m.transpose(-1, -2), gy) + u * (tail * dtf)[..., None]
+    dc_h = torch.matmul(dcb, bf)
+    db_h = torch.matmul(dcb.transpose(-1, -2), cf) \
+        + (tail * dtf)[..., None] * torch.matmul(xf, gs)
+    ddt = (dm * cbd).sum(-2) + v * tail + r * af
+    da = (r * dtf).sum((1, 2)).reshape(bh, 1, 1, 1)
+    db = torch.zeros(b.shape, device=x.device).index_add_(0, rows, db_h)
+    dc = torch.zeros(c.shape, device=x.device).index_add_(0, rows, dc_h)
+    return (dx.to(x.dtype), ddt[..., None].to(dt.dtype), da.to(a.dtype),
+            db.to(b.dtype), dc.to(c.dtype))
+
+
+def ssd_chunks_backward_cuda(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
+                             ngroups: int):
+    """One launch of the backward kernel (its two passes): the tensor-core
+    body for bf16, the CUDA-core body for fp32. None cotangents are zeros."""
+    require_cuda_tensors("ssd_chunks_bwd", x, dt, a, b, c, gy, gs, ge)
+    _check(x, dt, a, b, c, nheads, ngroups)
+    _check_kernel("ssd_chunks_bwd", x, dt, a, b, c)
+    bh, nc, l, p = x.shape
+    n = b.shape[-1]
+    dev = x.device
+    outs = (torch.empty_like(x, memory_format=torch.contiguous_format),
+            torch.empty(bh, nc, l, 1, device=dev),
+            torch.empty(bh, 1, 1, 1, device=dev),
+            torch.empty(b.shape, dtype=b.dtype, device=dev),
+            torch.empty(c.shape, dtype=c.dtype, device=dev))
+    if is_fake(x, dt, a, b, c, gy, gs, ge):     # a dry run's shapes
+        return outs
+    if x.numel() == 0:
+        return tuple(o.zero_() for o in outs)
+
+    def cot(g, shape):
+        return torch.zeros(shape, device=dev) if g is None \
+            else g.float().contiguous()
+
+    gy, gs, ge = cot(gy, (bh, nc, l, p)), cot(gs, (bh, nc, p, n)), \
+        cot(ge, (bh, nc, l, 1))
+    x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
+    dx, ddt, da, db, dc = outs
+    db_part = torch.empty(bh, nc, l, n, device=dev)
+    dc_part = torch.empty(bh, nc, l, n, device=dev)
+    da_part = torch.empty(bh, nc, dtype=torch.float64, device=dev)
+    err = SSD_CHUNKS_BWD.lib().ssd_chunks_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        gy.data_ptr(), gs.data_ptr(), ge.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(),
+        bh, nc, l, p, n, nheads, ngroups, DTYPE_CODES[x.dtype],
+        stream_handle(dev))
+    SSD_CHUNKS_BWD.check(err)
+    SSD_CHUNKS_BWD.launches += 1
+    return outs
+
+
+def ssd_chunks_backward(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
+                        ngroups: int):
+    """The backward twin for CPU tensors, the backward kernel otherwise,
     under the profiler label ``ssd_chunks_backward``."""
+    with count.kernel(SSD_CHUNKS_BWD.name, lambda: backward_work(
+            x, dt, a, b, c, nheads=nheads, ngroups=ngroups)), \
+            record_function("ssd_chunks_backward"):
+        bwd = ssd_chunks_backward_plain if x.device.type == "cpu" \
+            else ssd_chunks_backward_cuda
+        return bwd(x, dt, a, b, c, gy, gs, ge, nheads=nheads,
+                   ngroups=ngroups)
+
+
+class _SSDChunks(torch.autograd.Function):
+    """Forward: the CUDA kernel, or the twin for CPU tensors. Backward:
+    ``ssd_chunks_backward`` (the backward kernel, or its closed-form twin)
+    at the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, nheads, ngroups):
         ctx.save_for_backward(x, dt, a, b, c)
         ctx.opts = dict(nheads=nheads, ngroups=ngroups)
-        return ssd_chunks_cuda(x, dt, a, b, c, **ctx.opts)
+        fwd = ssd_chunks_plain if x.device.type == "cpu" else ssd_chunks_cuda
+        return fwd(x, dt, a, b, c, **ctx.opts)
 
     @staticmethod
     def backward(ctx, *grads):
-        diff = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad(), record_function("ssd_chunks_backward"):
-            outs = ssd_chunks_plain(*diff, **ctx.opts)
-            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-            got = torch.autograd.grad([o for o, _ in pairs], diff,
-                                      [g for _, g in pairs],
-                                      allow_unused=True)
+        got = ssd_chunks_backward(*ctx.saved_tensors, *grads, **ctx.opts)
         return (*got, None, None)
 
 
 def ssd_chunks(x, dt, a, b, c, *, nheads: int, ngroups: int):
-    """Plain twin for CPU tensors, the CUDA kernel otherwise."""
+    """Plain twin for CPU tensors, the CUDA kernel otherwise, through
+    ``_SSDChunks`` on both."""
     with count.kernel(SSD_CHUNKS.name, lambda: work(
             x, dt, a, b, c, nheads=nheads, ngroups=ngroups)):
-        if x.device.type == "cpu":
-            return ssd_chunks_plain(x, dt, a, b, c, nheads=nheads,
-                                    ngroups=ngroups)
         return _SSDChunks.apply(x, dt, a, b, c, nheads, ngroups)

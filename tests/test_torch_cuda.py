@@ -19,7 +19,10 @@ one-launch FFT equals its twin bit for bit. The flash backward kernel is
 held to its closed-form twin at the saved outputs: bf16 gradients within
 2^-7 of the largest (its products take bf16 operands), fp32 state
 gradients within 1e-5 and the CUDA-core body's fp32 gradients within 1e-4
-of max(1, the largest), bit-identical from call to call.
+of max(1, the largest), bit-identical from call to call. The SSD backward
+kernel is held to the twin's autograd: bf16 dx, dB and dC within 2^-7 of
+the largest, ddt and da (and every fp32 gradient) within 1e-4 of max(1,
+the largest), bit-identical from call to call.
 """
 from __future__ import annotations
 
@@ -506,41 +509,79 @@ def test_cuda_mamba_prefill_launches_ssd_once_per_layer(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["zamba2", "overflow"])
+@pytest.mark.parametrize("case", ["zamba2_prefill", "full_width", "groups2",
+                                  "ragged", "small", "overflow"])
 def test_cuda_ssd_chunks_grads_vs_twin(cuda, dtype, case):
-    """``_SSDChunks``: the kernel forward (one launch), and for the
-    backward the twin's gradient at the saved inputs: the same as the
-    twin's autograd, and finite where the decay above the diagonal
-    overflows."""
+    """``_SSDChunks`` on the card: one forward and one backward kernel
+    launch, against the twin's autograd at the same inputs, taken in
+    float64 (``cum`` the same fp32 values). bf16: dx, dB and dC within 2^-7
+    of the largest (the products take bf16 operands), ddt and da within
+    1e-4 of max(1, the largest); fp32: every gradient within 1e-4 of
+    max(1, the largest). Finite where the decay above the diagonal
+    overflows, and bit-identical from call to call. The oracle is float64
+    because da is ill-conditioned: an error in dcum[t] reaches it times
+    sum_{s<=t} dt[s], and at an overflow case (a = -4, cum near -1300)
+    the fp32 twin's own da misses 1e-4 of its largest against the float64
+    value (``tests/test_torch_ssd_backward.py``)."""
     bsz, h, g, nc, l, p, n, a_val, shift = SSD_CASES[case]
     args = ssd_inputs(cuda, dtype, bsz, h, g, nc, l, p, n, a_val, shift,
                       seed=4)
     gen = torch.Generator(device=cuda).manual_seed(5)
     diff = [t.detach().requires_grad_(True) for t in args]
-    outs = sk.ssd_chunks(*diff, nheads=h, ngroups=g)
-    ups = [torch.randn(o.shape, generator=gen, device=cuda) for o in outs]
-    before = sk.SSD_CHUNKS.launches
-    outs = sk.ssd_chunks(*diff, nheads=h, ngroups=g)
-    assert sk.SSD_CHUNKS.launches == before + 1
-    got = torch.autograd.grad(outs, diff, ups)
+    bh = bsz * h
+    ups = [torch.randn(shape, generator=gen, device=cuda) for shape in
+           ((bh, nc, l, p), (bh, nc, p, n), (bh, nc, l, 1))]
+    before = sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches
+    got = torch.autograd.grad(sk.ssd_chunks(*diff, nheads=h, ngroups=g),
+                              diff, ups)
+    assert (sk.SSD_CHUNKS.launches - before[0],
+            sk.SSD_CHUNKS_BWD.launches - before[1]) == (1, 1)
+    again = torch.autograd.grad(sk.ssd_chunks(*diff, nheads=h, ngroups=g),
+                                diff, ups)
+    wide = [t.detach().double().requires_grad_(True) for t in args]
     want = torch.autograd.grad(
-        sk.ssd_chunks_plain(*diff, nheads=h, ngroups=g), diff, ups)
+        sk.ssd_chunks_plain(*wide, nheads=h, ngroups=g), wide,
+        [u.double() for u in ups])
     torch.cuda.synchronize()
-    for x, y, leaf in zip(got, want, diff):
-        assert x.shape == leaf.shape and x.dtype == leaf.dtype
-        assert bool(torch.isfinite(x).all())
-        tol = 1e-5 * max(1.0, float(y.float().abs().max()))
-        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
+    for name, x, y, z, leaf in zip(SSD_GRADS, got, want, again, diff):
+        assert x.shape == leaf.shape and x.dtype == leaf.dtype, name
+        assert bool(torch.isfinite(x).all()), name
+        assert torch.equal(x, z), name
+        scale = float(y.abs().max())
+        tol = 2.0 ** -7 * scale if dtype == torch.bfloat16 \
+            and name in ("dx", "db", "dc") else 1e-4 * max(1.0, scale)
+        torch.testing.assert_close(x.double(), y, rtol=0, atol=tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunks_backward_refuses_wide_state(cuda):
+    """N > 128 is not taken by either kernel: the forward and the backward
+    wrapper raise, and nothing falls back to a twin."""
+    args = ssd_inputs(cuda, torch.bfloat16, 1, 2, 1, 1, 16, 16, 136, None,
+                      0.0)
+    diff = [t.detach().requires_grad_(True) for t in args]
+    with pytest.raises(ValueError, match="state"):
+        sk.ssd_chunks(*diff, nheads=2, ngroups=1)
+    ups = [torch.zeros(2, 1, 16, 16, device=cuda),
+           torch.zeros(2, 1, 16, 136, device=cuda), None]
+    before = sk.SSD_CHUNKS_BWD.launches
+    with pytest.raises(ValueError, match="state"):
+        sk.ssd_chunks_backward_cuda(*args, *ups, nheads=2, ngroups=1)
+    assert sk.SSD_CHUNKS_BWD.launches == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mamba2_forward_grads_vs_cpu(cuda, dtype):
     """Gradients of a Mamba2 layer (SMOKE zamba2 widths, chunk 8, two
-    chunks) on the card (the kernel, ``_SSDChunks``' backward) against the
-    same call on the CPU (the twin throughout), at
+    chunks) on the card (the forward and backward kernels, one launch
+    each) against the same call on the CPU (the twins throughout), at
     ``tests/test_torch_ssm.py``'s bounds: fp32 1e-4, bf16 2e-2."""
     from dataclasses import replace
     from repro_torch.configs import get_smoke_config
@@ -565,9 +606,10 @@ def test_cuda_mamba2_forward_grads_vs_cpu(cuda, dtype):
                                   up.to(y.device, y.dtype))
         return [g.cpu().float() for g in got]
 
-    before = sk.SSD_CHUNKS.launches
+    before = sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches
     got = grads(_to_device(params, cuda), x.to(cuda))
-    assert sk.SSD_CHUNKS.launches == before + 1
+    assert (sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches) == \
+        (before[0] + 1, before[1] + 1)
     want = grads(params, x)
     tol = 1e-4 if dtype == "float32" else 2e-2
     for name, a, b in zip(["x", *params], got, want):
@@ -596,7 +638,8 @@ def test_cuda_zamba_ring_loss_and_grads_vs_cpu(cuda):
                         generator=torch.Generator().manual_seed(1))
     batch = {"tokens": raw[:, :-1], "targets": raw[:, 1:]}
     counts = lambda: (sk.SSD_CHUNKS.launches,     # noqa: E731
-                      mk.TILE_MATMUL.launches, fk.FLASH_CARRY.launches)
+                      sk.SSD_CHUNKS_BWD.launches, mk.TILE_MATMUL.launches,
+                      fk.FLASH_CARRY.launches)
     before = counts()
     loss, _, grads = step_lib.value_and_grad(
         model, _to_device(params, cuda),

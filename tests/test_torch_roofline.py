@@ -32,8 +32,8 @@ from repro_torch.roofline import analysis, count, hw
 from repro_torch.train import step as step_lib
 
 ARCHS = configs.ARCHS
-KERNELS = (mk.TILE_MATMUL, fk.FLASH_CARRY, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS, ck.CONV2D_3X3,
-           ffk.FFT_STAGE)
+KERNELS = (mk.TILE_MATMUL, fk.FLASH_CARRY, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS,
+           sk.SSD_CHUNKS_BWD, ck.CONV2D_3X3, ffk.FFT_STAGE)
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +323,21 @@ PERF_ROWS = {
                          _meta(256, 1, 1, 1), _meta(4, 8, 256, 128),
                          _meta(4, 8, 256, 128), nheads=64, ngroups=1),
          (0.2609, "operations"))],
+    # the backward at zamba2-1.2b's (N = 64) and mamba2-1.3b's (N = 128)
+    # training shapes
+    "ssd_chunks_bwd": [
+        (lambda: sk.backward_work(_meta(256, 8, 256, 64, dtype=BF),
+                                  _meta(256, 8, 256, 1), _meta(256, 1, 1, 1),
+                                  _meta(4, 8, 256, 64, dtype=BF),
+                                  _meta(4, 8, 256, 64, dtype=BF), nheads=64,
+                                  ngroups=1),
+         (0.0933, "bytes")),
+        (lambda: sk.backward_work(_meta(256, 8, 256, 64, dtype=BF),
+                                  _meta(256, 8, 256, 1), _meta(256, 1, 1, 1),
+                                  _meta(4, 8, 256, 128, dtype=BF),
+                                  _meta(4, 8, 256, 128, dtype=BF), nheads=64,
+                                  ngroups=1),
+         (0.1045, "bytes"))],
     "conv2d_3x3": [
         (lambda: ck.work(_meta(256, 32, 8192), _meta(256, 1, 8192),
                          _meta(256, 1, 8192), _meta(3, 3)),
@@ -390,6 +405,12 @@ def _wrapper_calls(dev, fake_mode=None):
             t(4, 2, 16, 8), t(4, 2, 16, 1), t(4, 1, 1, 1), t(2, 2, 16, 8),
             t(2, 2, 16, 8), nheads=2, ngroups=1),
             [(4, 2, 16, 8), (4, 2, 8, 8), (4, 2, 16, 1)]),
+        "ssd_chunks_bwd": (lambda: sk.ssd_chunks_backward_cuda(
+            t(4, 2, 16, 8), t(4, 2, 16, 1), t(4, 1, 1, 1), t(2, 2, 16, 8),
+            t(2, 2, 16, 8), t(4, 2, 16, 8), t(4, 2, 8, 8), None, nheads=2,
+            ngroups=1),
+            [(4, 2, 16, 8), (4, 2, 16, 1), (4, 1, 1, 1), (2, 2, 16, 8),
+             (2, 2, 16, 8)]),
         "conv2d_3x3": (lambda: ck.conv_cuda(t(4, 3, 16), None, None,
                                             t(3, 3)), [(4, 3, 16)]),
         "fft_stage": (lambda: ffk.stage_cuda(t(2, 3, 16, dtype=c64),

@@ -11,9 +11,10 @@ heads (MHA) of 16, chunk 8. Bounds:
   own streamed decode;
 - the loss 1e-4 and every gradient 1e-3 (``tests/test_torch_train.py``),
   dense and on a ring of 2 in each link mode, with and without remat;
-- ``_SSDChunks`` (the card's path: the kernel forward, the twin's
-  gradient backward) with the twin standing in for the kernel: its
-  gradients equal the twin's autograd bit for bit;
+- ``_SSDChunks`` (the card's path: the kernel forward, the backward
+  kernel) with the twins standing in for the kernels: its outputs equal
+  the twin's bit for bit, its gradients the twin's autograd within 1e-5 of
+  the largest (``tests/test_torch_ssd_backward.py``'s bound);
 - freed slots: exactly one row of each cache leaf is zeroed, and a reused
   slot decodes bit for bit like a fresh engine;
 - greedy serving in lockstep with the reference's engine: tokens equal
@@ -46,7 +47,6 @@ from repro_torch.configs import (
 )
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.ssd import kernel as sk
-from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.systolic_matmul import kernel as mk
 from repro_torch.kernels.systolic_matmul import ops as mm_ops
 from repro_torch.models import (
@@ -279,23 +279,30 @@ def test_mamba_lm_refuses_a_ring():
 # ---------------------------------------------------------------------------
 
 
+PLAIN_SSD, PLAIN_SSD_BWD = sk.ssd_chunks_plain, sk.ssd_chunks_backward_plain
+
+
 @pytest.fixture
 def kernel_functions(monkeypatch):
-    """Route the CPU wrappers of ``ssd_chunks`` and ``tile_matmul`` through
-    ``_SSDChunks`` and ``_TileMatmul``, whose forward calls ``*_cuda``:
-    here the twin, counting launches as the kernel wrappers do.
-    ``flash_carry`` goes through ``_FlashCarry`` on the CPU too: its
-    forward and backward twins stand in for the two flash kernels and
-    count their launches."""
-    plain_ssd, plain_mm = sk.ssd_chunks_plain, mk.matmul_plain
+    """Route the CPU wrapper of ``tile_matmul`` through ``_TileMatmul``,
+    whose forward calls ``matmul_cuda``: here the twin, counting launches as
+    the kernel wrapper does. ``ssd_chunks`` and ``flash_carry`` go through
+    ``_SSDChunks`` and ``_FlashCarry`` on the CPU too: their forward and
+    backward twins stand in for the four kernels and count their
+    launches."""
+    plain_mm = mk.matmul_plain
     plain_flash, plain_bwd = fk.flash_carry_plain, \
         fk.flash_carry_backward_plain
-    launches = {"ssd_chunks": 0, "tile_matmul": 0, "flash_carry": 0,
-                "flash_carry_bwd": 0}
+    launches = {"ssd_chunks": 0, "ssd_chunks_bwd": 0, "tile_matmul": 0,
+                "flash_carry": 0, "flash_carry_bwd": 0}
 
     def ssd_kernel(*args, **kw):
         launches["ssd_chunks"] += 1
-        return plain_ssd(*args, **kw)
+        return PLAIN_SSD(*args, **kw)
+
+    def ssd_bwd_kernel(*args, **kw):
+        launches["ssd_chunks_bwd"] += 1
+        return PLAIN_SSD_BWD(*args, **kw)
 
     def mm_kernel(a, b, c=None, out_dtype=None, block=0):
         launches["tile_matmul"] += 1
@@ -309,10 +316,8 @@ def kernel_functions(monkeypatch):
         launches["flash_carry_bwd"] += 1
         return plain_bwd(*args, **kw)
 
-    monkeypatch.setattr(sk, "ssd_chunks_cuda", ssd_kernel)
-    monkeypatch.setattr(ssd_ops, "ssd_chunks",
-                        lambda x, dt, a, b, c, *, nheads, ngroups:
-                        sk._SSDChunks.apply(x, dt, a, b, c, nheads, ngroups))
+    monkeypatch.setattr(sk, "ssd_chunks_plain", ssd_kernel)
+    monkeypatch.setattr(sk, "ssd_chunks_backward_plain", ssd_bwd_kernel)
     monkeypatch.setattr(mk, "matmul_cuda", mm_kernel)
     monkeypatch.setattr(mk, "matmul_plain", mm_ops._TileMatmul.apply)
     monkeypatch.setattr(fk, "flash_carry_plain", flash_kernel)
@@ -322,10 +327,11 @@ def kernel_functions(monkeypatch):
 
 @pytest.mark.parametrize("shift", [0.0, 3.0])
 def test_ssd_chunks_function_grads_equal_twin(kernel_functions, shift):
-    """``_SSDChunks``' gradients in x, dt, a, b and c are the twin's
-    autograd bit for bit, also where exp(cum[t] - cum[s]) overflows above
-    the diagonal (shift 3: cum reaches about -900 in a chunk of 256),
-    where they stay finite."""
+    """``_SSDChunks``: one forward launch whose outputs are the twin's bit
+    for bit, and one backward launch whose gradients in x, dt, a, b and c
+    are the twin's autograd within 1e-5 of the largest, also where
+    exp(cum[t] - cum[s]) overflows above the diagonal (shift 3: cum
+    reaches about -900 in a chunk of 256), where they stay finite."""
     g = torch.Generator().manual_seed(0)
     bh, nc, l, p, n, h = 4, 2, 256 if shift else 16, 8, 8, 2
     x = torch.randn(bh, nc, l, p, generator=g)
@@ -344,14 +350,15 @@ def test_ssd_chunks_function_grads_equal_twin(kernel_functions, shift):
         return outs, torch.autograd.grad(outs, ins, ups)
 
     outs, got = grads(lambda *t: sk._SSDChunks.apply(*t, h, 1))
-    want_outs, want = grads(lambda *t: sk.ssd_chunks_plain(
-        *t, nheads=h, ngroups=1))
+    want_outs, want = grads(lambda *t: PLAIN_SSD(*t, nheads=h, ngroups=1))
     assert kernel_functions["ssd_chunks"] == 1
+    assert kernel_functions["ssd_chunks_bwd"] == 1
     for o, w in zip(outs, want_outs):
         assert torch.equal(o, w)
     for gt, wt in zip(got, want):
         assert torch.isfinite(gt).all()
-        assert torch.equal(gt, wt)
+        tol = 1e-5 * max(1.0, float(wt.abs().max()))
+        torch.testing.assert_close(gt, wt, rtol=0, atol=tol)
 
 
 def test_kernel_functions_zamba_grads_and_launches(smoke, kernel_functions):
@@ -362,15 +369,17 @@ def test_kernel_functions_zamba_grads_and_launches(smoke, kernel_functions):
     recomputes each super-block up to the input of its last Mamba2 layer
     (its shared block and ``inner - 1`` layers: a non-reentrant checkpoint
     stops once every tensor it saved is back), then each Mamba2 layer
-    once more for its own checkpoint."""
+    once more for its own checkpoint, and launches the SSD backward kernel
+    once per Mamba2 layer and the flash backward once per forward hop."""
     cfg = smoke["cfg"]
     model, params = _port(smoke, 2, "qlr", remat="full")
     batch = {k: torch.as_tensor(v) for k, v in smoke["batch"].items()}
     with torch.no_grad():
         model.loss(params, batch)
     n_super, inner = cfg.n_shared_attn, cfg.attn_every
-    forward = {"ssd_chunks": cfg.num_layers, "tile_matmul": n_super * 3 * 2,
-               "flash_carry": n_super * 2, "flash_carry_bwd": 0}
+    forward = {"ssd_chunks": cfg.num_layers, "ssd_chunks_bwd": 0,
+               "tile_matmul": n_super * 3 * 2, "flash_carry": n_super * 2,
+               "flash_carry_bwd": 0}
     assert kernel_functions == forward
     for k in kernel_functions:
         kernel_functions[k] = 0
@@ -378,6 +387,7 @@ def test_kernel_functions_zamba_grads_and_launches(smoke, kernel_functions):
     assert float(loss) == pytest.approx(smoke["loss"], abs=LOSS_TOL)
     _assert_grads(grads, smoke["grads"])
     step = {"ssd_chunks": 2 * cfg.num_layers + n_super * (inner - 1),
+            "ssd_chunks_bwd": cfg.num_layers,
             "tile_matmul": 2 * forward["tile_matmul"],
             "flash_carry": 2 * forward["flash_carry"],
             "flash_carry_bwd": forward["flash_carry"]}
