@@ -28,12 +28,14 @@ non-zero before the result lines are printed:
    mixtral-8x22b under its window, and qwen3's hop from zero state) the
    flash backward kernel against its closed-form twin (bf16 gradients
    within 2^-7 of the largest, fp32 state gradients within 1e-5, two
-   calls bit-identical), timed beside its bound, its twin, autograd of
-   the forward twin (the backward the card ran before the kernel) and,
-   from zero state, SDPA's backward; each flash hop
+   calls bit-identical), timed beside its bound, each pass's device time
+   and blocks, its twin, autograd of the forward twin (the backward the
+   card ran before the kernel) and SDPA's backward (causal; mixtral's
+   window as an explicit mask); each flash hop
    names the kernel body the profiler saw, and a bf16 hop with more than
    one query at head_dim 64 or 128 fails unless it ran the tensor-core
-   body of its width (the backward: both passes' tensor-core bodies);
+   body of its width (the backward: the prep pass, both passes' tensor-
+   core bodies and, where pass B splits, the sum of its partials);
 3. serving: ``ServeEngine`` over ``RingShardedBackend(n_pe=4, mode="qlr")``,
    whose ring hops run the kernels, qwen3-0.6b at full width in bf16 with
    random weights from a seed, 8 requests plus 4 admitted mid-run; every kernel's
@@ -318,6 +320,28 @@ def _kernel_rows(averages, ops: bool = False):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def _whole_rows(fn, iters: int, only: str | None, attempts: int):
+    """The kernel rows (``_kernel_rows``) of ``iters`` calls of ``fn``
+    under ``torch.profiler`` whose names contain ``only``, from the first
+    of ``attempts`` sessions in which each such kernel ran a whole
+    multiple of ``iters`` times; None when no session did."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    fn()                                         # warm
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in _kernel_rows(prof.key_averages())
+                if only is None or only in r[0]]
+        if rows and all(n % iters == 0 for _, _, n in rows):
+            return rows
+    return None
+
+
 def time_ms(fn, iters: int = 20, only: str | None = None,
             attempts: int = 3) -> float:
     """Device time of one call: the kernels' durations under
@@ -333,19 +357,9 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
     are timed with CUDA events (logged). Whether a kernel launched is
     checked by its counter, not here."""
     import torch
-    from torch.profiler import ProfilerActivity
-    fn()                                         # warm
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = [r for r in _kernel_rows(prof.key_averages())
-                if only is None or only in r[0]]
-        if rows and all(n % iters == 0 for _, _, n in rows):
-            return sum(ms for _, ms, _ in rows) / iters
+    rows = _whole_rows(fn, iters, only, attempts)
+    if rows is not None:
+        return sum(ms for _, ms, _ in rows) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -358,6 +372,20 @@ def time_ms(fn, iters: int = 20, only: str | None = None,
         f"launches for {only or 'a library call'}: {ms:.4f} ms from CUDA "
         f"events")
     return ms
+
+
+def split_ms(fn, only: str, iters: int = 10, attempts: int = 3):
+    """Device ms of one call by kernel body (``demangled_body`` of each
+    kernel whose name contains ``only``), from one profiler session as
+    ``time_ms`` takes it; None when no session recorded whole sets."""
+    rows = _whole_rows(fn, iters, only, attempts)
+    if rows is None:
+        return None
+    out = {}
+    for name, ms, _ in rows:
+        body = demangled_body(name)
+        out[body] = out.get(body, 0.0) + ms / iters
+    return out
 
 
 def profiled_bodies(fn, only: str, attempts: int = 5,
@@ -814,22 +842,72 @@ def twin_backward(torch, fk, args, ups, opts):
                  for x, g in zip(diff, got))
 
 
-def sdpa_backward_call(torch, q, k, v):
-    """SDPA's backward (causal, GQA) on the same q/k/v for a random output
-    gradient, as a yardstick: one PyTorch call's kernels."""
+def sdpa_backward_call(torch, q, k, v, mask=None):
+    """SDPA's backward on the same q/k/v for a random output gradient, as
+    a yardstick: one PyTorch call's kernels. Causal with GQA by
+    ``enable_gqa``, or, given a [B', Sq, T] key mask (a window), under
+    that mask with K/V repeated to the query heads, as ``sdpa_masked_call``
+    takes the forward."""
     import torch.nn.functional as F
     leaves = [x.detach().transpose(1, 2).requires_grad_(True)
               for x in (q, k, v)]
-    try:
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
-    except TypeError:
-        rep = q.shape[2] // k.shape[2]
+    rep = q.shape[2] // k.shape[2]
+    if mask is not None:
         out = F.scaled_dot_product_attention(
             leaves[0], leaves[1].repeat_interleave(rep, 1),
-            leaves[2].repeat_interleave(rep, 1), is_causal=True)
+            leaves[2].repeat_interleave(rep, 1), attn_mask=mask[:, None])
+    else:
+        try:
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                 enable_gqa=True)
+        except TypeError:
+            out = F.scaled_dot_product_attention(
+                leaves[0], leaves[1].repeat_interleave(rep, 1),
+                leaves[2].repeat_interleave(rep, 1), is_causal=True)
     up = torch.randn_like(out)
     return lambda: torch.autograd.grad(out, leaves, up, retain_graph=True)
+
+
+def bwd_bodies(fk, q, k, nsplit: int):
+    """The kernel bodies one tensor-core backward launch runs: the prep
+    pass, pass A, pass B (writing dK/dV, or fp32 partials when split)
+    and, when split, the fixed-order sum of the partials."""
+    d, split = q.shape[-1], nsplit > 1
+    bodies = [f"flash_carry_bwd_kernel_prep<{d}>",
+              f"flash_carry_bwd_kernel_rows_mma<{d}>",
+              f"flash_carry_bwd_kernel_keys_mma<{d}, {str(split).lower()}>"]
+    if split:
+        bodies.append("flash_carry_bwd_kernel_sum")
+    return bodies
+
+
+def bwd_case(torch, fk, cases, name, g):
+    """(args, opts, outs, ups) of backward case ``name``: the flash case's
+    inputs (``train_zero_state``: the normalized case's), the forward
+    kernel's outputs and random cotangents from ``g``."""
+    src = "train_normalized" if name == "train_zero_state" else name
+    args = cases[src]["args"]
+    opts = {k: cases[src]["opts"][k] for k in ("causal", "window")}
+    outs = fk.flash_carry_cuda(*args, **opts)
+    ups = [torch.randn(o.shape, generator=g, device=o.device) for o in outs]
+    return args, opts, outs, ups
+
+
+def bwd_errors(torch, got, want):
+    """(errors, bounds, all within and finite) of the six backward outputs
+    against the closed-form twin's: bf16 gradients within 2^-7 of the
+    largest; fp32 state gradients within 1e-5, fp32 q/K/V gradients (the
+    CUDA-core body) within 1e-4, of max(1, the largest)."""
+    errs, tols, ok = [], [], True
+    for i, (x, y) in enumerate(zip(got, want)):
+        big = float(y.float().abs().max())
+        tol = 2 ** -7 * big if x.dtype == torch.bfloat16 else \
+            (1e-5 if i >= 3 else 1e-4) * max(1.0, big)
+        err = float((x.float() - y.float()).abs().max())
+        ok = ok and err <= tol and bool(torch.isfinite(x).all())
+        errs.append(err)
+        tols.append(tol)
+    return errs, tols, ok
 
 
 def check_flash_backward(torch, fk, dev, cases):
@@ -837,18 +915,16 @@ def check_flash_backward(torch, fk, dev, cases):
     kernel's: against the closed-form twin (bf16 gradients within 2^-7 of
     the largest; fp32 state gradients within 1e-5, fp32 gradients of the
     CUDA-core body within 1e-4, of max(1, the largest)), two calls
-    bit-identical, the tensor-core bodies where the forward takes its own;
-    timed beside its bound at the live pairs, the twin, autograd of the
-    forward twin and, from zero state, SDPA's backward."""
+    bit-identical, the tensor-core bodies (``bwd_bodies``, and no other)
+    where the forward takes its own; timed beside its bound at the live
+    pairs, each pass's device time and blocks, the twin, autograd of the
+    forward twin and SDPA's backward (causal; mixtral's window as an
+    explicit mask)."""
     g = torch.Generator(device=dev).manual_seed(7)
     out = []
     for name in BWD_CASES:
-        src = "train_normalized" if name == "train_zero_state" else name
-        args = cases[src]["args"]
-        opts = {k: cases[src]["opts"][k] for k in ("causal", "window")}
+        args, opts, outs, ups = bwd_case(torch, fk, cases, name, g)
         q, k, v, m, l, acc, q_off, k_off, klen, kv_row = args
-        outs = fk.flash_carry_cuda(*args, **opts)
-        ups = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
         call = lambda: fk.flash_carry_backward_cuda(  # noqa: E731
             *args, *outs, *ups, **opts)
         before = fk.FLASH_CARRY_BWD.launches
@@ -857,37 +933,36 @@ def check_flash_backward(torch, fk, dev, cases):
         want = fk.flash_carry_backward_plain(*args, *outs, *ups, **opts)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        ok, errs, tols = same and launched == 2, [], []
-        for i, (x, y) in enumerate(zip(got, want)):
-            big = float(y.float().abs().max())
-            tol = 2 ** -7 * big if x.dtype == torch.bfloat16 else \
-                (1e-5 if i >= 3 else 1e-4) * max(1.0, big)
-            err = float((x.float() - y.float()).abs().max())
-            ok = ok and err <= tol and bool(torch.isfinite(x).all())
-            errs.append(err)
-            tols.append(tol)
+        errs, tols, within = bwd_errors(torch, got, want)
+        ok = same and launched == 2 and within
         del got, again, want
         mask = fk.key_mask(q_off.int(), k_off.int(), klen.int(), q.shape[1],
                            k.shape[1], causal=opts["causal"],
                            window=opts["window"])
         flops, moved, kind = fk.backward_work(q, k, m, acc,
                                               pairs=int(mask.sum()))
-        del mask
         b_ms, b_by = bound(moved, flops, kind)
-        # the two passes: one body each
-        body = profiled_bodies(call, "flash_carry_bwd_kernel", bodies=2)
+        nsplit = fk.backward_split(q, k)
+        blocks = fk.backward_blocks(q, k, nsplit)
         d = q.shape[-1]
-        if q.dtype == k.dtype == torch.bfloat16 and q.shape[1] > 1 \
-                and d in (64, 128):
+        tc = q.dtype == k.dtype == torch.bfloat16 and q.shape[1] > 1 \
+            and d in (64, 128)
+        want_bodies = bwd_bodies(fk, q, k, nsplit) if tc else []
+        body = profiled_bodies(call, "flash_carry_bwd_kernel",
+                               bodies=max(2, len(want_bodies)))
+        if tc:
+            # the tensor-core bodies and no other; a hop whose bodies no
+            # profiler session recorded fails too
             ok = ok and body is not None and "simt" not in body \
-                and f"flash_carry_bwd_kernel_rows_mma<{d}>" in body \
-                and f"flash_carry_bwd_kernel_keys_mma<{d}," in body
-        lib = None
-        if name == "train_zero_state":
-            lib = time_ms(sdpa_backward_call(torch, q, k, v), iters=10)
+                and all(b in body for b in want_bodies)
+        lib = time_ms(sdpa_backward_call(
+            torch, q, k, v, mask if opts["window"] else None), iters=10)
+        del mask
         rec = {"case": name, "max_abs_err": max(errs), "errors": errs,
                "tols": tols, "ok": ok, "bit_identical": same, "body": body,
                "ms": time_ms(call, iters=10, only="flash_carry_bwd_kernel"),
+               "passes_ms": split_ms(call, "flash_carry_bwd_kernel"),
+               "blocks": blocks, "nsplit": nsplit,
                "plain_ms": time_ms(lambda: fk.flash_carry_backward_plain(
                    *args, *outs, *ups, **opts), iters=3),
                "twin_backward_ms": time_ms(lambda: twin_backward(
@@ -896,12 +971,15 @@ def check_flash_backward(torch, fk, dev, cases):
                "shape": {"q": list(q.shape), "k": list(k.shape),
                          "dtype_q": str(q.dtype), "dtype_kv": str(k.dtype),
                          "window": opts["window"]}}
+        passes = {b: round(ms, 4) for b, ms in
+                  (rec["passes_ms"] or {}).items()}
         log(f"[kernels] flash_carry_bwd {name}: {body} errors "
             f"{[f'{e:.3e}' for e in errs]} (tols "
             f"{[f'{t:.3e}' for t in tols]}), bit-identical {same}: kernel "
-            f"{rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, autograd "
-            f"twin {rec['twin_backward_ms']:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), library {lib}" + ratio_text(rec))
+            f"{rec['ms']:.4f} ms (passes {passes}; blocks {blocks}, nsplit "
+            f"{nsplit}), twin {rec['plain_ms']:.4f} ms, autograd twin "
+            f"{rec['twin_backward_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), SDPA backward {lib:.4f} ms" + ratio_text(rec))
         out.append(rec)
         del outs, ups
     return out
@@ -4603,8 +4681,8 @@ def main() -> int:
         for b in flash_bwd:
             if b["case"] == rec["case"]:
                 rec["backward"] = {k: b[k] for k in (
-                    "ms", "bound_ms", "bound_by", "max_abs_err", "plain_ms",
-                    "twin_backward_ms")}
+                    "ms", "passes_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err", "plain_ms", "twin_backward_ms")}
     mm = check_matmul(torch, mk, dev)
     # phase 14 (a) runs here, beside phase 2's cases: late in a long run
     # the profiler loses launches (time_ms then falls back to events)

@@ -25,18 +25,19 @@
 // cotangents are fp32 contiguous. dq is [B', Sq, H, D] in q's type, dk and
 // dv [Bk, T, Kv, D] in k's type, all contiguous.
 //
-// Two passes, no atomics (the gradients are bit-identical run to run):
+// Two passes over the keys, no atomics on floating-point values and every
+// sum in a fixed order (the gradients are bit-identical run to run):
 // * pass A, one block per (query row b', KV head, 64 flattened query rows):
 //   one sweep over the live key tiles accumulates dQ without the max route
 //   and finds each row's M, its tie count and first tied key; then the
-//   state gradients, r and the tie weight w are written (w and M to
+//   max route's part of dm and the tie weight w are written (w and M to
 //   scratch for pass B), and w times the tied keys is added to dQ: the one
 //   tied key's row where there is one (the rule), a second sweep over the
 //   ties where a row of the block has several. (The CUDA-core body sweeps
 //   twice, the tally first.)
-// * pass B, one block per (K/V row, KV head, key tile): a fixed-order loop
-//   over the query rows that read the K/V row (grouped by the wrapper),
-//   their group heads and query tiles accumulates dK and dV.
+// * pass B, one block per (K/V row, KV head, key tile, share): a
+//   fixed-order loop over its share of the items (query row that reads the
+//   K/V row, grouped by the wrapper; query tile) accumulates dK and dV.
 // Both passes recompute S and P from the saved m_new. A row whose m_new is
 // still the sentinel has p = 1 on its (all masked) keys: those feed dV but
 // not dQ/dK, so pass B skips a dead tile only when every row of the query
@@ -46,24 +47,50 @@
 // What bounds it on an H100: at qwen3-0.6b's training hop (q
 // [32,256,16,128], k/v [32,256,8,128] bf16) the bytes are ~0.41 GB, most
 // of them the four fp32 acc-sized tensors (acc, acc_new, g_acc, g_acc_in),
-// ~0.12 ms at 3.35 TB/s; the five products (12 D operations a pair as the
-// reference's VJP counts them) are ~0.05 ms on the tensor cores. Two
-// bodies, chosen as the forward's are:
-// * bf16 q and K/V with Sq > 1 at D = 64 or 128 (every training hop):
-//   mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, as FlashAttention-2
-//   takes them), cp.async double buffering into padded shared memory read
-//   by ldmatrix. Pass A keeps a warp's 16 query rows of q and g_acc as A
-//   fragments in registers, as the forward keeps q. Pass B computes S and
-//   dP with the query rows as the mma's M side, exactly as pass A and the
-//   forward do, so every score and every tie test is bit for bit the same
-//   in both passes; P and dS are rounded to bf16 and transposed in
-//   registers (movmatrix) into the A fragments of dV = P^T G and
-//   dK = dS^T Q. g_acc is rounded to bf16 once, in pass A, into scratch.
+// ~0.12 ms at 3.35 TB/s; the products (12 D operations a pair as the
+// reference's VJP counts them; the kernel does 14, S and dP in both
+// passes) are ~0.05 ms on the tensor cores. Two bodies, chosen as the
+// forward's are:
+// * bf16 q and K/V with Sq > 1 at D = 64 or 128 (every training hop), four
+//   launches, each shaped against what held the first form back:
+//   - prep: the fp32 preamble (g_acc . acc, g_acc . acc_new, g_acc_in, the
+//     bf16 copy of g_acc, dl, r) as a pass of its own at full occupancy,
+//     D/4 lanes a row with a float4 each, so that neighbouring lanes read
+//     and write neighbouring 16 bytes (it was pass A's prologue, a quarter
+//     row a lane, 128 bytes apart at D = 128, under 2 blocks an SM).
+//   - pass A: mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, as
+//     FlashAttention-2 takes them). The block's q and g_acc wait in shared
+//     memory and are read by ldmatrix at each k step (they were A
+//     fragments held for the whole sweep: 255 registers and spills at D =
+//     128); K/V tiles stream through a cp.async ring of 3 stages at D = 64
+//     (3 blocks an SM) and 2 at D = 128 (2 blocks an SM; a third would
+//     leave one).
+//   - pass B computes S and dP with mma.sync and the query rows as the M
+//     side, exactly as pass A and the forward do, so every score and every
+//     tie test is bit for bit the same in both passes; P and dS are rounded
+//     to bf16 and transposed in registers (movmatrix) into the A operands
+//     of dV = P^T G and dK = dS^T Q, which are wgmma (m64nDk16) over the
+//     warpgroup's 64 keys: G and Q are read from shared memory (128-byte
+//     swizzled) once for the four warps, where mma.sync had each warp read
+//     them again for its 16 keys; each chunk's wgmma runs on while the next
+//     chunk's S and dP are taken. At D = 64 K's B fragments stay in
+//     registers.
+//   - Where Bk x Kv x T/64 pass B blocks fall below two waves of the card
+//     (GQA hops: 256 blocks at internvl2's and mixtral's), the wrapper
+//     splits each key tile's items into nsplit contiguous shares; each
+//     writes fp32 partials to scratch and the sum pass adds them in share
+//     order into dK and dV.
 //   A tile whose keys are live for every row of its block takes no mask,
 //   and p is exp2 on the special-function unit (relative error ~2^-22
 //   against the bf16 gradients' 2^-7 bound; the state gradients do not
-//   depend on p). At D = 64 pass B keeps the warp's K and V fragments in
-//   registers.
+//   depend on p). Pass A tallies a row's max a tile at a time (the tile's
+//   max first; the keys that tie it only where it reaches the running max).
+//   What holds this form back (chip_smoke.py phase 2 and ablations on an
+//   NVIDIA H100 80GB HBM3, 700 W): the prep pass runs at ~2.9 TB/s, but
+//   with every product and the elementwise work taken out, pass A and pass
+//   B still take about 0.10 and 0.08 ms of their ~0.17 at qwen3's hop. The
+//   blocks start in lock-step waves and wait for their first tiles; blocks
+//   of 128 rows or keys (half the L2 traffic, half the blocks) were slower.
 // * everything else (fp32 operands, other head dims up to 128, Sq = 1):
 //   fp32 FMAs on the CUDA cores, pass A with the key range split across
 //   warps (a lane per key) and pass B with the query rows split across
@@ -175,28 +202,61 @@ struct Args {
   const float *m, *l, *acc, *m_new, *l_new, *acc_new, *g_m, *g_l, *g_acc;
   void *dq, *dk, *dv;
   float *dm, *dl, *dacc;
-  float *tie_max, *tie_w;     // [B', H, Sq]: pass A -> pass B
+  float *tie_max, *tie_w;     // [B', H, Sq]: pass A -> pass B (tie_w: r before)
   __nv_bfloat16* g16;         // [B', H, Sq, D]: g_acc in bf16 (tensor-core body)
   int* resolved;              // [B', Kv, row tiles] (tensor-core body)
+  int nsplit;                 // pass B's shares of a key tile's items (tensor-core body)
+  const int* share;           // [Bk, nsplit + 1]: each share's first item, then the end
+  float* part;                // [2, nsplit, Bk, T, Kv, D]: dK's, dV's partials (nsplit > 1)
   int Bp, Bk, H, Kv, Sq, D, causal, window;
   float scale;
 };
 
 // ---------------------------------------------------------------------------
-// tensor-core body: mma.sync on bf16
+// tensor-core body: mma.sync and wgmma on bf16
 // ---------------------------------------------------------------------------
 
-constexpr int TC_ROWS = 64, TC_KEYS = 64, TC_THREADS = 128;
+constexpr int TC_ROWS = 64, TC_KEYS = 64, TC_THREADS = 128, PREP_THREADS = 256,
+              SUM_THREADS = 256;
 
+// Pass A: q, g_acc (bf16) and a ring of K/V tiles, padded rows read by
+// ldmatrix. Three stages at D = 64 (three blocks an SM), two at D = 128
+// (two blocks an SM; a third stage would leave one). At D = 64, two stages
+// and four blocks an SM spill (128 registers).
 template <int D>
-struct TcTile {
+struct TcA {
   static constexpr int ROW = D + 8;                  // padded row, bf16 elements
   static constexpr int TILE = 64 * ROW;              // one 64-row tile
-  static constexpr int SMEM_A = 2 * 2 * TILE * 2;    // 2 stages x (K, V), bytes
-  // K, V of the block's keys; 2 stages x (Q, G) and the per-row scalars
-  static constexpr int SCAL = 5 * TC_ROWS;           // mn, g_l, M, w (fp32), s (int)
-  static constexpr int SMEM_B = 2 * TILE * 2 + 2 * 2 * TILE * 2 + 2 * SCAL * 4;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 2;
+  static constexpr int SMEM = (2 + 2 * STAGES) * TILE * 2;
 };
+
+// Pass B: the block's K and V (padded, ldmatrix), two stages of the item's
+// Q and G tiles in the 128-byte swizzled layout wgmma reads them in (64-row
+// panels of 64 columns; a row's 16-byte chunk c of a panel sits at chunk
+// c ^ (row % 8)) and the items' per-row scalars; 1024 bytes to align the
+// swizzle atoms. At D = 64 the warp's K fragments stay in registers (V's
+// too would spill at three blocks an SM); at D = 128 neither does (K's
+// took 255 registers and were no faster). Tried and slower: a third stage
+// and four blocks an SM at D = 64, 128 keys (8 warps) a block.
+template <int D>
+struct TcB {
+  static constexpr int ROW = D + 8;
+  static constexpr int TILE = 64 * ROW;
+  static constexpr int PANEL = 64 * 128;             // bytes: 64 rows x 64 columns
+  static constexpr int QG = 64 * D * 2;              // bytes: one Q or G tile
+  static constexpr int SCAL = 5 * TC_ROWS;           // mn, g_l, M, w (fp32), s (int)
+  static constexpr int SMEM = 1024 + 2 * TILE * 2 + 2 * (2 * QG + SCAL * 4);
+  static constexpr bool K_REGS = D == 64, V_REGS = false;
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 2;
+};
+
+// the byte offset of row j's 16-byte chunk c in a swizzled Q or G tile
+template <int D>
+__device__ __forceinline__ uint32_t qg_off(int j, int c) {
+  return (c >> 3) * TcB<D>::PANEL + j * 128 + (((c & 7) ^ (j & 7)) << 4);
+}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
                                          uint32_t b1) {
@@ -229,6 +289,66 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// Shared-memory matrix descriptor, 128-byte swizzle (as tile_matmul.cu's):
+// every swizzle atom (8 rows of 128 bytes) starts on 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async's writes, made visible to wgmma's reads of shared memory
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x N] += A[64 x 16] (registers, mma.sync's A fragment per warp) @
+// B[16 x N] (shared memory, N-major), fp32 accumulator
+__device__ __forceinline__ void wgmma_ra_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ra_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_ra(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (D == 64) wgmma_ra_n64(d, a, db);
+  else wgmma_ra_n128(d, a, db);
+}
+
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x on the special-function unit (relative error ~2^-22; results below
@@ -248,15 +368,64 @@ __device__ __forceinline__ bool tile_live(int t0, int T, int ko, int kl, int qpo
          (window <= 0 || qpos_max - lo < window);
 }
 
-// Pass A: dQ and the state gradients of 64 flattened query rows. At D = 64
-// three blocks share an SM (168 registers, a few spilled: faster than two
-// blocks at 240 registers, with the same bits).
+// The fp32 preamble, a pass of its own at full occupancy: per (query row
+// b', head, query) row, g_acc . acc and g_acc . acc_new, g_acc_in = g_acc
+// corr and g_acc in bf16 (for the products). D/4 lanes take a row, a
+// float4 each: neighbouring lanes read and write neighbouring 16 bytes.
+// dl is final here; dm holds corr (g_l l + g_acc . acc) and tie_w holds r
+// until pass A adds the max route.
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(PREP_THREADS)
+flash_carry_bwd_kernel_prep(const Args a) {
+  constexpr int LPR = D / 4;                              // lanes a row
+  const long long nrows = (long long)a.Bp * a.H * a.Sq;
+  const long long row =
+      (long long)blockIdx.x * (PREP_THREADS / LPR) + threadIdx.x / LPR;
+  const int c = (threadIdx.x % LPR) * 4;
+  const bool ok = row < nrows;
+  float s1 = 0.f, s2 = 0.f, corr = 0.f;
+  if (ok) {
+    corr = expf(a.m[row] - a.m_new[row]);
+    const size_t base = (size_t)row * D + c;
+    const float4 g4 = *reinterpret_cast<const float4*>(a.g_acc + base);
+    const float4 a4 = *reinterpret_cast<const float4*>(a.acc + base);
+    const float4 n4 = *reinterpret_cast<const float4*>(a.acc_new + base);
+    s1 = fmaf(g4.x, a4.x, s1); s1 = fmaf(g4.y, a4.y, s1);
+    s1 = fmaf(g4.z, a4.z, s1); s1 = fmaf(g4.w, a4.w, s1);
+    s2 = fmaf(g4.x, n4.x, s2); s2 = fmaf(g4.y, n4.y, s2);
+    s2 = fmaf(g4.z, n4.z, s2); s2 = fmaf(g4.w, n4.w, s2);
+    *reinterpret_cast<float4*>(a.dacc + base) =
+        make_float4(g4.x * corr, g4.y * corr, g4.z * corr, g4.w * corr);
+    uint2 u;
+    u.x = pack_bf16(g4.x, g4.y);
+    u.y = pack_bf16(g4.z, g4.w);
+    *reinterpret_cast<uint2*>(a.g16 + base) = u;
+  }
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(FULL, s1, o);
+    s2 += __shfl_xor_sync(FULL, s2, o);
+  }
+  if (ok && c == 0) {
+    const float gl = a.g_l[row];
+    a.dl[row] = gl * corr;
+    a.dm[row] = corr * (gl * a.l[row] + s1);
+    a.tie_w[row] = a.g_m[row] - gl * a.l_new[row] - s2;
+  }
+}
+
+// Pass A: dQ and the max route of 64 flattened query rows (warp w owns
+// rows 16w..16w+15). q and g_acc wait in shared memory and are read as A
+// fragments by ldmatrix at each k step.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, TcA<D>::MIN_BLOCKS)
 flash_carry_bwd_kernel_rows_mma(const Args a) {
-  using Tile = TcTile<D>;
+  using Cfg = TcA<D>;
+  constexpr int ROW = Cfg::ROW, STAGES = Cfg::STAGES, CH = D / 8;  // 16-byte chunks a row
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* gs = qs + Cfg::TILE;
+  __nv_bfloat16* kv_s = gs + Cfg::TILE;                  // [stage][K, V]
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
@@ -267,23 +436,39 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
   const int qo = a.q_off[b], ko = a.k_off[b], kl = a.klen[b];
   const long long kv_base = (long long)a.kv_row[b] * a.kv_sb + (long long)kvh * a.kv_sh;
 
-  // this lane's rows: e = 0 (fragment rows 0-7) and e = 1 (rows 8-15)
+  // the block's rows of q and of g_acc in bf16 (the prep pass's copy),
+  // zero past the last row; they land with the first K/V tile
+#pragma unroll
+  for (int i = 0; i < TC_ROWS * CH / TC_THREADS; ++i) {
+    const int idx = tid + i * TC_THREADS, j = idx / CH, c = (idx % CH) * 8;
+    const int rr = r0 + j;
+    const bool ok = rr < rows;
+    const int g = ok ? rr / Sq : 0, s = ok ? rr % Sq : 0, h = kvh * G + g;
+    cp_async16(smem_u32(qs + j * ROW + c), ok ? q + b * a.q_sb + s * a.q_ss + h * a.q_sh + c : q,
+               ok);
+    cp_async16(smem_u32(gs + j * ROW + c),
+               ok ? a.g16 + (((size_t)b * a.H + h) * Sq + s) * D + c : a.g16, ok);
+  }
+
+  // this lane's rows: e = 0 (fragment rows 0-7) and e = 1 (rows 8-15);
+  // head, position and state index recomputed where needed, for registers
+  auto head_pos = [&](int e, int& h, int& s) {
+    const int rr = r0 + warp * 16 + (lane >> 2) + 8 * e;
+    h = kvh * G + (rr < rows ? rr / Sq : 0);
+    s = rr < rows ? rr % Sq : 0;
+    return ((size_t)b * a.H + h) * Sq + s;
+  };
   bool rv[2];
-  int qp[2], hh[2], ss[2];
-  size_t si[2];
-  float mn[2], gl[2], corr[2];
+  int qp[2];
+  float mn[2], gl[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const int rr = r0 + warp * 16 + (lane >> 2) + 8 * e;
-    rv[e] = rr < rows;
-    const int g = rv[e] ? rr / Sq : 0, s = rv[e] ? rr % Sq : 0;
-    hh[e] = kvh * G + g;
-    ss[e] = s;
+    rv[e] = r0 + warp * 16 + (lane >> 2) + 8 * e < rows;
+    int h, s;
+    const size_t si = head_pos(e, h, s);
     qp[e] = qo + s;
-    si[e] = ((size_t)b * a.H + hh[e]) * Sq + s;
-    mn[e] = rv[e] ? a.m_new[si[e]] : 0.f;
-    gl[e] = rv[e] ? a.g_l[si[e]] : 0.f;
-    corr[e] = rv[e] ? expf(a.m[si[e]] - mn[e]) : 0.f;
+    mn[e] = rv[e] ? a.m_new[si] : 0.f;
+    gl[e] = rv[e] ? a.g_l[si] : 0.f;
   }
   const bool res = (!rv[0] || mn[0] > NEG) && (!rv[1] || mn[1] > NEG);
   const bool all_resolved = __syncthreads_and(res);
@@ -293,56 +478,6 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
   position_range(r0, nr, Sq, s_min, s_max);
   const int qpos_min = qo + s_min, qpos_max = qo + s_max;
 
-  // g_acc . acc and g_acc . acc_new; g_acc_in = g_acc corr; the bf16 copy
-  // of g_acc. Lane (lane & 3) of a quad takes a quarter of both rows.
-  float dot_a[2], dot_n[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float s1 = 0.f, s2 = 0.f;
-    if (rv[e]) {
-      const size_t base = si[e] * D;
-      for (int c = (lane & 3) * (D / 4); c < ((lane & 3) + 1) * (D / 4); c += 4) {
-        const float4 g4 = *reinterpret_cast<const float4*>(a.g_acc + base + c);
-        const float4 a4 = *reinterpret_cast<const float4*>(a.acc + base + c);
-        const float4 n4 = *reinterpret_cast<const float4*>(a.acc_new + base + c);
-        s1 = fmaf(g4.x, a4.x, s1); s1 = fmaf(g4.y, a4.y, s1);
-        s1 = fmaf(g4.z, a4.z, s1); s1 = fmaf(g4.w, a4.w, s1);
-        s2 = fmaf(g4.x, n4.x, s2); s2 = fmaf(g4.y, n4.y, s2);
-        s2 = fmaf(g4.z, n4.z, s2); s2 = fmaf(g4.w, n4.w, s2);
-        *reinterpret_cast<float4*>(a.dacc + base + c) =
-            make_float4(g4.x * corr[e], g4.y * corr[e], g4.z * corr[e], g4.w * corr[e]);
-        uint2 u;
-        u.x = pack_bf16(g4.x, g4.y);
-        u.y = pack_bf16(g4.z, g4.w);
-        *reinterpret_cast<uint2*>(a.g16 + base + c) = u;
-      }
-    }
-    s1 += __shfl_xor_sync(FULL, s1, 1);
-    s1 += __shfl_xor_sync(FULL, s1, 2);
-    s2 += __shfl_xor_sync(FULL, s2, 1);
-    s2 += __shfl_xor_sync(FULL, s2, 2);
-    dot_a[e] = s1;
-    dot_n[e] = s2;
-  }
-
-  // q and g_acc as mma A fragments: {(row0, c), (row8, c), (row0, c+8), (row8, c+8)}
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + (lane & 3) * 2;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const __nv_bfloat16* qrow = q + b * a.q_sb + ss[e] * a.q_ss + hh[e] * a.q_sh;
-      qf[kk][e] = rv[e] ? *reinterpret_cast<const uint32_t*>(qrow + c) : 0u;
-      qf[kk][2 + e] = rv[e] ? *reinterpret_cast<const uint32_t*>(qrow + c + 8) : 0u;
-      const float* grow = a.g_acc + si[e] * D;
-      const float2 g0 = rv[e] ? *reinterpret_cast<const float2*>(grow + c) : make_float2(0.f, 0.f);
-      const float2 g8 = rv[e] ? *reinterpret_cast<const float2*>(grow + c + 8) : make_float2(0.f, 0.f);
-      gf[kk][e] = pack_bf16(g0.x, g0.y);
-      gf[kk][2 + e] = pack_bf16(g8.x, g8.y);
-    }
-  }
-
   auto next_live = [&](int t0) {
     while (t0 < T && tile_dead(t0, min(TC_KEYS, T - t0), ko, kl, qpos_min, qpos_max,
                                a.causal, a.window))
@@ -350,18 +485,19 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
     return t0;
   };
   auto load_tile = [&](int t0, int st, bool with_v) {
-    __nv_bfloat16* ks = kv_s + (2 * st) * Tile::TILE;
-    __nv_bfloat16* vs = ks + Tile::TILE;
-    constexpr int CH = D / 8;                     // 16-byte chunks per key row
+    __nv_bfloat16* ks = kv_s + (2 * st) * Cfg::TILE;
+    __nv_bfloat16* vs = ks + Cfg::TILE;
 #pragma unroll
     for (int i = 0; i < TC_KEYS * CH / TC_THREADS; ++i) {
       const int idx = tid + i * TC_THREADS, j = idx / CH, c = (idx % CH) * 8;
       const bool ok = t0 + j < T;
       const long long off = kv_base + (long long)(t0 + j) * a.kv_st + c;
-      cp_async16(smem_u32(ks + j * Tile::ROW + c), ok ? k + off : k, ok);
-      if (with_v) cp_async16(smem_u32(vs + j * Tile::ROW + c), ok ? v + off : v, ok);
+      cp_async16(smem_u32(ks + j * ROW + c), ok ? k + off : k, ok);
+      if (with_v) cp_async16(smem_u32(vs + j * ROW + c), ok ? v + off : v, ok);
     }
   };
+  // A fragments of the warp's 16 rows of a [64][ROW] tile at k step kk
+  const int a_row = warp * 16 + (lane & 15), a_col = (lane >> 4) * 8;
   // One sweep over the live key tiles accumulates dQ from dS = p (dP +
   // g_l) and tallies each row's max over its live scores, the number of
   // keys that tie it and the first of them. The max route's part of dQ,
@@ -377,110 +513,155 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
   bool several = false;
   for (int sweep = 0; sweep < 1 + several; ++sweep) {
     const bool with_v = sweep == 0;
-    int cur = next_live(0), st = 0;
-    if (cur < T) load_tile(cur, 0, with_v);
-    cp_async_commit();
-    while (cur < T) {
-      const int nxt = next_live(cur + TC_KEYS);
-      if (nxt < T) load_tile(nxt, st ^ 1, with_v);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const __nv_bfloat16* ks = kv_s + (2 * st) * Tile::TILE;
-      const __nv_bfloat16* vs = ks + Tile::TILE;
-      // S = Q K^T for the warp's 16 rows x 64 keys: sc[j] is the C fragment
-      // of keys j*8.. (the forward's order of products)
-      float sc[TC_KEYS / 8][4];
+    // a ring of STAGES tiles, STAGES - 1 in flight ahead of the math
+    int ld = next_live(0);
 #pragma unroll
-      for (int j = 0; j < TC_KEYS / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int jj = 0; jj < TC_KEYS / 16; ++jj) {
-          uint32_t bk[4];
-          const int key = jj * 16 + (lane & 7) + (lane >> 4) * 8;
-          const int d = kk * 16 + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(bk, smem_u32(ks + key * Tile::ROW + d));
-          mma_bf16(sc[2 * jj], qf[kk], bk[0], bk[1]);
-          mma_bf16(sc[2 * jj + 1], qf[kk], bk[2], bk[3]);
-        }
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (ld < T) {
+        load_tile(ld, s, with_v);
+        ld = next_live(ld + TC_KEYS);
       }
+      cp_async_commit();
+    }
+    int cur = next_live(0), st = 0;
+    while (cur < T) {
+      cp_async_wait<STAGES - 2>();              // this thread's tile cur landed
+      __syncthreads();                          // everyone's; the last stage is free
+      if (ld < T) {
+        load_tile(ld, (st + STAGES - 1) % STAGES, with_v);
+        ld = next_live(ld + TC_KEYS);
+      }
+      cp_async_commit();
+      const __nv_bfloat16* ks = kv_s + (2 * st) * Cfg::TILE;
+      const __nv_bfloat16* vs = ks + Cfg::TILE;
       // a tile live for every row of the block needs no mask (rows past the
       // block have q = g_acc = 0, so their dS is 0)
       const bool all_live = tile_live(cur, T, ko, kl, qpos_min, qpos_max, a.causal,
                                       a.window);
-      if (sweep == 0) {
-        // dS = p (dP + g_l), by 16 keys: dP = g_acc V^T
+      // the tile's 64 keys in two halves of 32, for registers
 #pragma unroll
-        for (int jj = 0; jj < TC_KEYS / 16; ++jj) {
-          float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      for (int hf = 0; hf < 2; ++hf) {
+        const int k0 = hf * (TC_KEYS / 2);
+        // S = Q K^T for the warp's 16 rows x 32 keys: sc[j] is the C
+        // fragment of keys k0 + j*8.. (the forward's order of products)
+        float sc[TC_KEYS / 16][4];
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t bv[4];
-            const int key = jj * 16 + (lane & 7) + (lane >> 4) * 8;
+        for (int j = 0; j < TC_KEYS / 16; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t af[4];
+          ldmatrix_x4(af, smem_u32(qs + a_row * ROW + kk * 16 + a_col));
+#pragma unroll
+          for (int jj = 0; jj < TC_KEYS / 32; ++jj) {
+            uint32_t bk[4];
+            const int key = k0 + jj * 16 + (lane & 7) + (lane >> 4) * 8;
             const int d = kk * 16 + ((lane >> 3) & 1) * 8;
-            ldmatrix_x4(bv, smem_u32(vs + key * Tile::ROW + d));
-            mma_bf16(dp[0], gf[kk], bv[0], bv[1]);
-            mma_bf16(dp[1], gf[kk], bv[2], bv[3]);
+            ldmatrix_x4(bk, smem_u32(ks + key * ROW + d));
+            mma_bf16(sc[2 * jj], af, bk[0], bk[1]);
+            mma_bf16(sc[2 * jj + 1], af, bk[2], bk[3]);
           }
+        }
+        // bit 4j + i of live: whether sc[j][i] is (all, for a live tile)
+        uint32_t live = FULL;
+        if (!all_live) {
+          live = 0u;
 #pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int j = 2 * jj + h2;
+          for (int j = 0; j < TC_KEYS / 16; ++j)
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int e = i >> 1, key = cur + j * 8 + (lane & 3) * 2 + (i & 1);
-              const bool live = all_live || (key < T && rv[e] &&
-                                             key_ok(ko + key, qp[e], kl, a.causal, a.window));
-              const float s = sc[j][i] * a.scale;
-              if (live) {
-                if (s > bm[e]) {
-                  bm[e] = s;
-                  bc[e] = 1;
-                  bj[e] = key;
-                } else if (s == bm[e]) {
-                  ++bc[e];
-                }
+              const int e = i >> 1, key = cur + k0 + j * 8 + (lane & 3) * 2 + (i & 1);
+              if (key < T && rv[e] && key_ok(ko + key, qp[e], kl, a.causal, a.window))
+                live |= 1u << (4 * j + i);
+            }
+        }
+        if (sweep == 0) {
+          // the tally of each row's max: the half's max first, and the keys
+          // that tie it only where it reaches the running max (rounding is
+          // monotone, so the half's max times scale is the max of the
+          // scaled scores; the ties are counted among the scaled scores)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float tm = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < TC_KEYS / 16; ++j)
+#pragma unroll
+              for (int i = 2 * e; i < 2 * e + 2; ++i)
+                if (live >> (4 * j + i) & 1u) tm = fmaxf(tm, sc[j][i]);
+            const float M = tm * a.scale;
+            if (tm > -INFINITY && M >= bm[e]) {
+              if (M > bm[e]) {
+                bm[e] = M;
+                bc[e] = 0;
               }
-              const float p = ex2(fmaf(sc[j][i], sl2, -mb[e]));
-              sc[j][i] = live ? p * (dp[h2][i] + gl[e]) : 0.f;
+#pragma unroll
+              for (int j = 0; j < TC_KEYS / 16; ++j)
+#pragma unroll
+                for (int i = 2 * e; i < 2 * e + 2; ++i)
+                  if ((live >> (4 * j + i) & 1u) && sc[j][i] * a.scale == M) {
+                    if (bc[e] == 0) bj[e] = cur + k0 + j * 8 + (lane & 3) * 2 + (i & 1);
+                    ++bc[e];
+                  }
             }
           }
+          // dS = p (dP + g_l), by 16 keys: dP = g_acc V^T
+#pragma unroll
+          for (int jj = 0; jj < TC_KEYS / 32; ++jj) {
+            float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+              uint32_t gf[4], bv[4];
+              const int key = k0 + jj * 16 + (lane & 7) + (lane >> 4) * 8;
+              const int d = kk * 16 + ((lane >> 3) & 1) * 8;
+              ldmatrix_x4(gf, smem_u32(gs + a_row * ROW + kk * 16 + a_col));
+              ldmatrix_x4(bv, smem_u32(vs + key * ROW + d));
+              mma_bf16(dp[0], gf, bv[0], bv[1]);
+              mma_bf16(dp[1], gf, bv[2], bv[3]);
+            }
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int j = 2 * jj + h2, e = i >> 1;
+                const float p = ex2(fmaf(sc[j][i], sl2, -mb[e]));
+                sc[j][i] = live >> (4 * j + i) & 1u ? p * (dp[h2][i] + gl[e]) : 0.f;
+              }
+          }
+        } else {
+          // the ties alone: dS = w where s equals the row's max
+#pragma unroll
+          for (int j = 0; j < TC_KEYS / 16; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = i >> 1;
+              sc[j][i] =
+                  (live >> (4 * j + i) & 1u) && bc[e] > 1 && sc[j][i] * a.scale == bm[e]
+                      ? w[e]
+                      : 0.f;
+            }
         }
-      } else {
-        // the ties alone: dS = w where s equals the row's max
+        // dQ += dS K, 16 keys per step
 #pragma unroll
-        for (int j = 0; j < TC_KEYS / 8; ++j) {
+        for (int kk = 0; kk < TC_KEYS / 32; ++kk) {
+          uint32_t af[4];
+          af[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+          af[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+          af[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+          af[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int e = i >> 1, key = cur + j * 8 + (lane & 3) * 2 + (i & 1);
-            const bool live = all_live || (key < T && rv[e] &&
-                                           key_ok(ko + key, qp[e], kl, a.causal, a.window));
-            sc[j][i] = live && bc[e] > 1 && sc[j][i] * a.scale == bm[e] ? w[e] : 0.f;
+          for (int jd = 0; jd < D / 16; ++jd) {
+            uint32_t bk[4];
+            const int key = k0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+            const int d = jd * 16 + (lane >> 4) * 8;
+            ldmatrix_x4_trans(bk, smem_u32(ks + key * ROW + d));
+            mma_bf16(dq[2 * jd], af, bk[0], bk[1]);
+            mma_bf16(dq[2 * jd + 1], af, bk[2], bk[3]);
           }
         }
       }
-      // dQ += dS K, 16 keys per step
-#pragma unroll
-      for (int kk = 0; kk < TC_KEYS / 16; ++kk) {
-        uint32_t af[4];
-        af[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-        af[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-        af[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-        af[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-        for (int jd = 0; jd < D / 16; ++jd) {
-          uint32_t bk[4];
-          const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-          const int d = jd * 16 + (lane >> 4) * 8;
-          ldmatrix_x4_trans(bk, smem_u32(ks + key * Tile::ROW + d));
-          mma_bf16(dq[2 * jd], af, bk[0], bk[1]);
-          mma_bf16(dq[2 * jd + 1], af, bk[2], bk[3]);
-        }
-      }
-      __syncthreads();                          // stage st is refilled next
-      cur = nxt;
-      st ^= 1;
+      cur = next_live(cur + TC_KEYS);
+      st = (st + 1) % STAGES;
     }
+    cp_async_wait<0>();
     if (sweep == 0) {
       bool more = false;
 #pragma unroll
@@ -494,15 +675,18 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
           merge_tie(bm[e], bc[e], m2, c2);
         }
         float to_m = 0.f, M = NEG;
+        int h, sp;
+        const size_t si = head_pos(e, h, sp);
         if (rv[e]) {
-          const float r = a.g_m[si[e]] - gl[e] * a.l_new[si[e]] - dot_n[e];
-          max_route(a.m[si[e]], bm[e], bc[e], r, to_m, w[e], M);
-          if ((lane & 3) == 0) {
-            a.dm[si[e]] = corr[e] * (gl[e] * a.l[si[e]] + dot_a[e]) + to_m;
-            a.dl[si[e]] = gl[e] * corr[e];
-            a.tie_max[si[e]] = M;
-            a.tie_w[si[e]] = w[e];
-          }
+          const float r = a.tie_w[si];              // the prep pass's r
+          max_route(a.m[si], bm[e], bc[e], r, to_m, w[e], M);
+        }
+        // every lane of the quad has read r before its first lane writes w
+        __syncwarp();
+        if (rv[e] && (lane & 3) == 0) {
+          a.dm[si] += to_m;
+          a.tie_max[si] = M;
+          a.tie_w[si] = w[e];
         }
         bm[e] = M;                // a live score ties iff it equals M
         if (rv[e] && w[e] != 0.f && bc[e] == 1) {
@@ -526,33 +710,45 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (!rv[e]) continue;
-    __nv_bfloat16* row = out + (((size_t)b * Sq + ss[e]) * a.H + hh[e]) * D;
+    int h, sp;
+    head_pos(e, h, sp);
+    __nv_bfloat16* row = out + (((size_t)b * Sq + sp) * a.H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       store2(row + j * 8 + (lane & 3) * 2, dq[j][2 * e] * a.scale, dq[j][2 * e + 1] * a.scale);
   }
 }
 
-// Pass B: dK and dV of 64 keys of one (K/V row, KV head); warp w owns keys
-// 16w..16w+15.
-template <int D, typename TO>
-__global__ void __launch_bounds__(TC_THREADS)
+// Pass B: dK and dV of 64 keys of one (K/V row, KV head) over one share of
+// the items (query row, query tile) that read them; warp w owns keys
+// 16w..16w+15. S and dP are mma.sync with the query rows on the M side,
+// as pass A takes them; dV += P^T G and dK += dS^T Q are wgmma over the
+// warpgroup's 64 keys, P^T and dS^T from registers, G and Q read from
+// shared memory once for all four warps. SPLIT: the share's fp32 partials
+// go to scratch for the fixed-order sum; otherwise dK and dV themselves.
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(TC_THREADS, TcB<D>::MIN_BLOCKS)
 flash_carry_bwd_kernel_keys_mma(const Args a) {
-  using Tile = TcTile<D>;
+  using Cfg = TcB<D>;
+  constexpr int ROW = Cfg::ROW, CH = D / 8;       // 16-byte chunks a row
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + Tile::TILE;
-  __nv_bfloat16* qg_s = vs + Tile::TILE;                  // [stage][Q, G] tiles
-  float* scal = reinterpret_cast<float*>(qg_s + 4 * Tile::TILE);   // [stage][5][64]
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + Cfg::TILE;
+  const uint32_t qg_s = smem_u32(vs + Cfg::TILE);        // [stage][Q, G], 1024-aligned
+  float* scal = reinterpret_cast<float*>(smem + 2 * Cfg::TILE * 2 + 4 * Cfg::QG);
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  const int kr = blockIdx.z, kvh = blockIdx.y, t0 = blockIdx.x * TC_KEYS;
+  const int kv_tiles = (a.T + TC_KEYS - 1) / TC_KEYS;
+  const int share = blockIdx.x / kv_tiles, t0 = (blockIdx.x % kv_tiles) * TC_KEYS;
+  const int kr = blockIdx.z, kvh = blockIdx.y;
   const int nt = min(TC_KEYS, a.T - t0);
   const int G = a.H / a.Kv, Sq = a.Sq, T = a.T, rows = G * Sq;
   const int ntile = (rows + TC_ROWS - 1) / TC_ROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int CH = D / 8;                       // 16-byte chunks per row
+  const float sl2 = a.scale * LOG2E;
 
   {
     const long long kv_base = (long long)kr * a.kv_sb + (long long)kvh * a.kv_sh;
@@ -561,13 +757,17 @@ flash_carry_bwd_kernel_keys_mma(const Args a) {
       const int idx = tid + i * TC_THREADS, j = idx / CH, c = (idx % CH) * 8;
       const bool ok = j < nt;
       const long long off = kv_base + (long long)(t0 + j) * a.kv_st + c;
-      cp_async16(smem_u32(ks + j * Tile::ROW + c), ok ? k + off : k, ok);
-      cp_async16(smem_u32(vs + j * Tile::ROW + c), ok ? v + off : v, ok);
+      cp_async16(smem_u32(ks + j * ROW + c), ok ? k + off : k, ok);
+      cp_async16(smem_u32(vs + j * ROW + c), ok ? v + off : v, ok);
     }
     cp_async_commit();
   }
 
-  const int i0 = a.start[kr], n_items = (a.start[kr + 1] - i0) * ntile;
+  // this share's items, in order: item n is query tile n % ntile of the
+  // n / ntile-th query row that reads K/V row kr
+  const int i0 = a.start[kr];
+  const int* bounds = a.share + (size_t)kr * (a.nsplit + 1) + share;
+  const int n_end = bounds[1];
   auto needed = [&](int n) {
     const int b = a.order[i0 + n / ntile], tile = n % ntile, r0 = tile * TC_ROWS;
     int s_min, s_max;
@@ -578,29 +778,45 @@ flash_carry_bwd_kernel_keys_mma(const Args a) {
              a.resolved[((size_t)b * a.Kv + kvh) * ntile + tile]);
   };
   auto next_needed = [&](int n) {
-    while (n < n_items && !needed(n)) ++n;
+    while (n < n_end && !needed(n)) ++n;
     return n;
   };
   auto load_item = [&](int n, int st) {
     const int b = a.order[i0 + n / ntile], r0 = (n % ntile) * TC_ROWS;
-    __nv_bfloat16* qs = qg_s + (2 * st) * Tile::TILE;
-    __nv_bfloat16* gs = qs + Tile::TILE;
+    const uint32_t qs = qg_s + (2 * st) * Cfg::QG, gs = qs + Cfg::QG;
+    // (group, position) of row r0 + j: one division an item where the rows
+    // wrap into the next group at most once
+    const int g0 = r0 / Sq, s0 = r0 % Sq;
+    auto group_pos = [&](int j, int& g, int& s) {
+      if (Sq >= TC_ROWS) {
+        s = s0 + j;
+        g = g0 + (s >= Sq);
+        s -= s >= Sq ? Sq : 0;
+      } else {
+        g = (r0 + j) / Sq;
+        s = (r0 + j) % Sq;
+      }
+    };
 #pragma unroll
     for (int i = 0; i < TC_ROWS * CH / TC_THREADS; ++i) {
-      const int idx = tid + i * TC_THREADS, j = idx / CH, c = (idx % CH) * 8;
-      const int rr = r0 + j;
-      const bool ok = rr < rows;
-      const int g = ok ? rr / Sq : 0, s = ok ? rr % Sq : 0, h = kvh * G + g;
-      const __nv_bfloat16* qsrc = q + b * a.q_sb + s * a.q_ss + h * a.q_sh + c;
-      const __nv_bfloat16* gsrc = a.g16 + (((size_t)b * a.H + h) * Sq + s) * D + c;
-      cp_async16(smem_u32(qs + j * Tile::ROW + c), ok ? qsrc : q, ok);
-      cp_async16(smem_u32(gs + j * Tile::ROW + c), ok ? gsrc : a.g16, ok);
+      const int idx = tid + i * TC_THREADS, j = idx / CH, c = idx % CH;
+      const bool ok = r0 + j < rows;
+      int g, s;
+      group_pos(j, g, s);
+      const int h = kvh * G + (ok ? g : 0);
+      s = ok ? s : 0;
+      const __nv_bfloat16* qsrc = q + b * a.q_sb + s * a.q_ss + h * a.q_sh + c * 8;
+      const __nv_bfloat16* gsrc = a.g16 + (((size_t)b * a.H + h) * Sq + s) * D + c * 8;
+      cp_async16(qs + qg_off<D>(j, c), ok ? qsrc : q, ok);
+      cp_async16(gs + qg_off<D>(j, c), ok ? gsrc : a.g16, ok);
     }
     if (tid < TC_ROWS) {
-      float* sc = scal + st * Tile::SCAL;
-      const int rr = r0 + tid;
-      const bool ok = rr < rows;
-      const int g = ok ? rr / Sq : 0, s = ok ? rr % Sq : 0;
+      float* sc = scal + st * Cfg::SCAL;
+      const bool ok = r0 + tid < rows;
+      int g, s;
+      group_pos(tid, g, s);
+      g = ok ? g : 0;
+      s = ok ? s : 0;
       const size_t si = ((size_t)b * a.H + kvh * G + g) * Sq + s;
       cp_async4(smem_u32(sc + tid), a.m_new + si, ok);
       cp_async4(smem_u32(sc + TC_ROWS + tid), a.g_l + si, ok);
@@ -610,95 +826,120 @@ flash_carry_bwd_kernel_keys_mma(const Args a) {
     }
   };
 
-  float dk[D / 8][4], dv[D / 8][4];
+  // wgmma's accumulators: value 4j + i at key 16w + lane/4 + 8 (i >> 1),
+  // column 8j + 2 (lane % 4) + (i & 1)
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
-  }
-  // At D = 64 the warp's K and V B fragments (the same for every query
-  // tile) stay in registers; at D = 128 they are read per use, for room
-  constexpr bool KV_REGS = D == 64;
-  uint32_t kb[KV_REGS ? D / 16 : 1][4], vb[KV_REGS ? D / 16 : 1][4];
+  for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+  // the warp's K and V B fragments (the same for every query tile), kept
+  // in registers where room allows
+  uint32_t kb[Cfg::K_REGS ? D / 16 : 1][4], vb[Cfg::V_REGS ? D / 16 : 1][4];
   const int kv_key = warp * 16 + (lane & 7) + (lane >> 4) * 8;
-  if constexpr (KV_REGS) {
+  if constexpr (Cfg::K_REGS || Cfg::V_REGS) {
     cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int d = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(kb[kk], smem_u32(ks + kv_key * Tile::ROW + d));
-      ldmatrix_x4(vb[kk], smem_u32(vs + kv_key * Tile::ROW + d));
+      if constexpr (Cfg::K_REGS) ldmatrix_x4(kb[kk], smem_u32(ks + kv_key * ROW + d));
+      if constexpr (Cfg::V_REGS) ldmatrix_x4(vb[kk], smem_u32(vs + kv_key * ROW + d));
     }
   }
-  int cur = next_needed(0), st = 0;
-  if (cur < n_items) load_item(cur, 0);
+  int cur = next_needed(bounds[0]), st = 0;
+  if (cur < n_end) load_item(cur, 0);
   cp_async_commit();
-  while (cur < n_items) {
+  while (cur < n_end) {
     const int nxt = next_needed(cur + 1);
-    if (nxt < n_items) load_item(nxt, st ^ 1);
+    if (nxt < n_end) load_item(nxt, st ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
+    fence_async_shared();
     __syncthreads();
-    const __nv_bfloat16* qs = qg_s + (2 * st) * Tile::TILE;
-    const __nv_bfloat16* gs = qs + Tile::TILE;
-    const float* sc = scal + st * Tile::SCAL;
+    const uint32_t qs = qg_s + (2 * st) * Cfg::QG, gs = qs + Cfg::QG;
+    const float* sc = scal + st * Cfg::SCAL;
     const int* spos = reinterpret_cast<const int*>(sc) + 4 * TC_ROWS;
     const int b = a.order[i0 + cur / ntile];
     const int r0 = (cur % ntile) * TC_ROWS;
     const int qo = a.q_off[b], ko = a.k_off[b], kl = a.klen[b];
     int s_min, s_max;
     position_range(r0, min(TC_ROWS, rows - r0), Sq, s_min, s_max);
-    // the block's keys live for every query of the tile: no mask
+    // the block's keys live for every query of the tile: no mask; full:
+    // and every key of the block lies below T
     const bool all_live = tile_live(t0, T, ko, kl, qo + s_min, qo + s_max, a.causal,
                                     a.window);
+    const bool full = all_live && t0 + TC_KEYS <= T;
     for (int ch = 0; ch < TC_ROWS / 16 && r0 + ch * 16 < rows; ++ch) {
       // S and dP for 16 query rows (M side) x the warp's 16 keys, as pass A
       float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const int arow = ch * 16 + (lane & 15);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t af[4], bk[4];
-        const int row = ch * 16 + (lane & 15), ac = kk * 16 + (lane >> 4) * 8;
         const int d = kk * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(af, smem_u32(qs + row * Tile::ROW + ac));
-        if constexpr (KV_REGS) {
+        ldmatrix_x4(af, qs + qg_off<D>(arow, kk * 2 + (lane >> 4)));
+        if constexpr (Cfg::K_REGS) {
           mma_bf16(s[0], af, kb[kk][0], kb[kk][1]);
           mma_bf16(s[1], af, kb[kk][2], kb[kk][3]);
         } else {
-          ldmatrix_x4(bk, smem_u32(ks + kv_key * Tile::ROW + d));
+          ldmatrix_x4(bk, smem_u32(ks + kv_key * ROW + d));
           mma_bf16(s[0], af, bk[0], bk[1]);
           mma_bf16(s[1], af, bk[2], bk[3]);
         }
-        ldmatrix_x4(af, smem_u32(gs + row * Tile::ROW + ac));
-        if constexpr (KV_REGS) {
+        ldmatrix_x4(af, gs + qg_off<D>(arow, kk * 2 + (lane >> 4)));
+        if constexpr (Cfg::V_REGS) {
           mma_bf16(dp[0], af, vb[kk][0], vb[kk][1]);
           mma_bf16(dp[1], af, vb[kk][2], vb[kk][3]);
         } else {
-          ldmatrix_x4(bk, smem_u32(vs + kv_key * Tile::ROW + d));
+          ldmatrix_x4(bk, smem_u32(vs + kv_key * ROW + d));
           mma_bf16(dp[0], af, bk[0], bk[1]);
           mma_bf16(dp[1], af, bk[2], bk[3]);
         }
       }
-      // P and dS of the 16 x 16 pairs
+      // P and dS of the 16 x 16 pairs; the thread's two rows' scalars
+      float mn[2], glr[2], tmx[2], twr[2];
+      int spr[2];
 #pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = ch * 16 + (lane >> 2) + 8 * (i >> 1);
-          const int key = t0 + warp * 16 + h2 * 8 + (lane & 3) * 2 + (i & 1);
-          const int sp = spos[row];
-          const bool in = key < T && sp >= 0;
-          const bool live =
-              in && (all_live || key_ok(ko + key, qo + sp, kl, a.causal, a.window));
-          const float sv = live ? s[h2][i] * a.scale : NEG;
-          const float p = in ? ex2((sv - sc[row]) * LOG2E) : 0.f;
-          s[h2][i] = p;
-          dp[h2][i] = live ? p * (dp[h2][i] + sc[TC_ROWS + row]) +
-                                 (sv == sc[2 * TC_ROWS + row] ? sc[3 * TC_ROWS + row] : 0.f)
-                           : 0.f;
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int row = ch * 16 + (lane >> 2) + 8 * e;
+        mn[e] = sc[row];
+        glr[e] = sc[TC_ROWS + row];
+        tmx[e] = sc[2 * TC_ROWS + row];
+        twr[e] = sc[3 * TC_ROWS + row];
+        spr[e] = spos[row];
       }
+      if (full && r0 + ch * 16 + 16 <= rows) {
+        // every pair live: p as pass A takes it, the tie test on s scale
+        const float mb[2] = {mn[0] * LOG2E, mn[1] * LOG2E};
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = i >> 1;
+            const float sv = s[h2][i] * a.scale;
+            const float p = ex2(fmaf(s[h2][i], sl2, -mb[e]));
+            s[h2][i] = p;
+            dp[h2][i] = p * (dp[h2][i] + glr[e]) + (sv == tmx[e] ? twr[e] : 0.f);
+          }
+      } else {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = i >> 1;
+            const int key = t0 + warp * 16 + h2 * 8 + (lane & 3) * 2 + (i & 1);
+            const bool in = key < T && spr[e] >= 0;
+            const bool live =
+                in && (all_live || key_ok(ko + key, qo + spr[e], kl, a.causal, a.window));
+            const float sv = live ? s[h2][i] * a.scale : NEG;
+            const float p = in ? ex2((sv - mn[e]) * LOG2E) : 0.f;
+            s[h2][i] = p;
+            dp[h2][i] =
+                live ? p * (dp[h2][i] + glr[e]) + (sv == tmx[e] ? twr[e] : 0.f) : 0.f;
+          }
+      }
+      // the previous chunk's products have read their A registers
+      wgmma_wait0();
       // P^T and dS^T as A fragments (keys x rows)
       uint32_t pt[4], dst[4];
       pt[0] = movtrans(pack_bf16(s[0][0], s[0][1]));
@@ -709,40 +950,70 @@ flash_carry_bwd_kernel_keys_mma(const Args a) {
       dst[1] = movtrans(pack_bf16(dp[1][0], dp[1][1]));
       dst[2] = movtrans(pack_bf16(dp[0][2], dp[0][3]));
       dst[3] = movtrans(pack_bf16(dp[1][2], dp[1][3]));
-      // dV += P^T G, dK += dS^T Q
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        uint32_t bf[4];
-        const int row = ch * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int d = jd * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(bf, smem_u32(gs + row * Tile::ROW + d));
-        mma_bf16(dv[2 * jd], pt, bf[0], bf[1]);
-        mma_bf16(dv[2 * jd + 1], pt, bf[2], bf[3]);
-        ldmatrix_x4_trans(bf, smem_u32(qs + row * Tile::ROW + d));
-        mma_bf16(dk[2 * jd], dst, bf[0], bf[1]);
-        mma_bf16(dk[2 * jd + 1], dst, bf[2], bf[3]);
-      }
+      // dV += P^T G, dK += dS^T Q over the block's 64 keys: rows ch*16.. of
+      // the swizzled tiles, N-major; they run on while the next chunk's S
+      // and dP are taken
+      wgmma_fence();
+      wgmma_ra<D>(dv, pt, sw128_desc(gs + ch * 16 * 128, Cfg::PANEL, 1024));
+      wgmma_ra<D>(dk, dst, sw128_desc(qs + ch * 16 * 128, Cfg::PANEL, 1024));
+      wgmma_commit();
     }
+    wgmma_wait0();
     __syncthreads();                            // stage st is refilled next
     cur = nxt;
     st ^= 1;
   }
   cp_async_wait<0>();
 
-  TO* dk_out = static_cast<TO*>(a.dk);
-  TO* dv_out = static_cast<TO*>(a.dv);
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int key = t0 + warp * 16 + (lane >> 2) + 8 * e;
     if (key >= T) continue;
     const size_t base = (((size_t)kr * T + key) * a.Kv + kvh) * D;
+    if constexpr (SPLIT) {
+      // [2][nsplit][Bk, T, Kv, D]: dK's partials, then dV's
+      const size_t n = (size_t)a.Bk * T * a.Kv * D;
+      float* pk = a.part + share * n + base;
+      float* pv = a.part + (a.nsplit + share) * n + base;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = j * 8 + (lane & 3) * 2;
-      store2(dk_out + base + c, dk[j][2 * e] * a.scale, dk[j][2 * e + 1] * a.scale);
-      store2(dv_out + base + c, dv[j][2 * e], dv[j][2 * e + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = j * 8 + (lane & 3) * 2;
+        store2(pk + c, dk[4 * j + 2 * e], dk[4 * j + 2 * e + 1]);
+        store2(pv + c, dv[4 * j + 2 * e], dv[4 * j + 2 * e + 1]);
+      }
+    } else {
+      __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(a.dk) + base;
+      __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(a.dv) + base;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = j * 8 + (lane & 3) * 2;
+        store2(dk_out + c, dk[4 * j + 2 * e] * a.scale, dk[4 * j + 2 * e + 1] * a.scale);
+        store2(dv_out + c, dv[4 * j + 2 * e], dv[4 * j + 2 * e + 1]);
+      }
     }
   }
+}
+
+// dK and dV from pass B's partials: the shares summed in their order (0,
+// 1, ...), whichever block finished first; 4 elements a thread.
+__global__ void __launch_bounds__(SUM_THREADS) flash_carry_bwd_kernel_sum(const Args a) {
+  const size_t n = (size_t)a.Bk * a.T * a.Kv * a.D;
+  const size_t i = ((size_t)blockIdx.x * SUM_THREADS + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int s = 0; s < a.nsplit; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(a.part + s * n + i);
+    const float4 y = *reinterpret_cast<const float4*>(a.part + (a.nsplit + s) * n + i);
+    sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+    sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+  }
+  uint2 uk, uv;
+  uk.x = pack_bf16(sk.x * a.scale, sk.y * a.scale);
+  uk.y = pack_bf16(sk.z * a.scale, sk.w * a.scale);
+  uv.x = pack_bf16(sv.x, sv.y);
+  uv.y = pack_bf16(sv.z, sv.w);
+  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.dk) + i) = uk;
+  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.dv) + i) = uv;
 }
 
 // ---------------------------------------------------------------------------
@@ -1136,18 +1407,32 @@ cudaError_t allow_smem(Kern kern, int bytes, bool& done) {
 
 template <int D>
 cudaError_t launch_mma(const Args& a, cudaStream_t s) {
-  static bool attr_a = false, attr_b = false;
+  static bool attr_a = false, attr_b = false, attr_bs = false;
   auto ka = flash_carry_bwd_kernel_rows_mma<D>;
-  auto kb = flash_carry_bwd_kernel_keys_mma<D, __nv_bfloat16>;
-  cudaError_t e = allow_smem(ka, TcTile<D>::SMEM_A, attr_a);
+  const bool split = a.nsplit > 1;
+  auto kb = split ? flash_carry_bwd_kernel_keys_mma<D, true>
+                  : flash_carry_bwd_kernel_keys_mma<D, false>;
+  cudaError_t e = allow_smem(ka, TcA<D>::SMEM, attr_a);
   if (e != cudaSuccess) return e;
-  e = allow_smem(kb, TcTile<D>::SMEM_B, attr_b);
+  e = allow_smem(kb, TcB<D>::SMEM, split ? attr_bs : attr_b);
+  if (e != cudaSuccess) return e;
+  const long long nrows = (long long)a.Bp * a.H * a.Sq;
+  constexpr int prep_rows = PREP_THREADS / (D / 4);
+  flash_carry_bwd_kernel_prep<D>
+      <<<(unsigned)((nrows + prep_rows - 1) / prep_rows), PREP_THREADS, 0, s>>>(a);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int rows = (a.H / a.Kv) * a.Sq;
-  ka<<<dim3((rows + TC_ROWS - 1) / TC_ROWS, a.Kv, a.Bp), TC_THREADS, TcTile<D>::SMEM_A, s>>>(a);
+  ka<<<dim3((rows + TC_ROWS - 1) / TC_ROWS, a.Kv, a.Bp), TC_THREADS, TcA<D>::SMEM, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.T == 0) return e;
-  kb<<<dim3((a.T + TC_KEYS - 1) / TC_KEYS, a.Kv, a.Bk), TC_THREADS, TcTile<D>::SMEM_B, s>>>(a);
+  const int kv_tiles = (a.T + TC_KEYS - 1) / TC_KEYS;
+  kb<<<dim3(kv_tiles * a.nsplit, a.Kv, a.Bk), TC_THREADS, TcB<D>::SMEM, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !split) return e;
+  const long long n4 = (long long)a.Bk * a.T * a.Kv * D / 4;
+  flash_carry_bwd_kernel_sum<<<(unsigned)((n4 + SUM_THREADS - 1) / SUM_THREADS), SUM_THREADS,
+                               0, s>>>(a);
   return cudaSuccess;
 }
 
@@ -1181,12 +1466,35 @@ bool misaligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
 }
 
+template <int D>
+cudaError_t keys_resident(int* out) {
+  static bool attr = false;
+  auto kb = flash_carry_bwd_kernel_keys_mma<D, false>;
+  cudaError_t e = allow_smem(kb, TcB<D>::SMEM, attr);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0, dev = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kb, TC_THREADS, TcB<D>::SMEM);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = per_sm * sms;
+  return e;
+}
+
 }  // namespace
 
 // Whether the tensor-core body takes these inputs (the wrapper sizes its
 // scratch by it).
 extern "C" int flash_carry_bwd_uses_mma(int q_dtype, int kv_dtype, int Sq, int D) {
   return q_dtype == 1 && kv_dtype == 1 && Sq > 1 && (D == 64 || D == 128);
+}
+
+// How many blocks of the tensor-core pass B the current device holds at
+// once (blocks an SM times SMs), into *out: the wrapper's split plan reads
+// it.
+extern "C" int flash_carry_bwd_keys_resident(int D, int* out) {
+  *out = 0;
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(D == 64 ? keys_resident<64>(out) : keys_resident<128>(out));
 }
 
 extern "C" int flash_carry_bwd(
@@ -1198,9 +1506,10 @@ extern "C" int flash_carry_bwd(
     const float* g_m, const float* g_l, const float* g_acc, void* dq, void* dk, void* dv,
     float* dm, float* dl, float* dacc, float* tie_max, float* tie_w, void* g16,
     int* resolved, int Bp, int Bk, int H, int Kv, int Sq, int D, int causal, int window,
-    float scale, void* stream) {
+    float scale, int nsplit, const int* share, float* part, void* stream) {
   if (Bp <= 0 || Bk <= 0 || Sq <= 0 || T < 0 || Kv <= 0 || H % Kv != 0 || D <= 0 ||
-      D > DMAX || (q_dtype != 0 && q_dtype != 1) || (kv_dtype != 0 && kv_dtype != 1))
+      D > DMAX || (q_dtype != 0 && q_dtype != 1) || (kv_dtype != 0 && kv_dtype != 1) ||
+      nsplit < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   // K/V rows are copied as 16-byte vectors: they must start on 16 bytes
   const long long vn = kv_dtype == 0 ? 4 : 8;
@@ -1210,16 +1519,17 @@ extern "C" int flash_carry_bwd(
   const Args a{q, k, v, q_sb, q_ss, q_sh, kv_sb, kv_st, kv_sh, kv_row, order, start,
                q_off, k_off, klen, T, m, l, acc, m_new, l_new, acc_new, g_m, g_l, g_acc,
                dq, dk, dv, dm, dl, dacc, tie_max, tie_w,
-               static_cast<__nv_bfloat16*>(g16), resolved, Bp, Bk, H, Kv, Sq, D,
-               causal, window, scale};
+               static_cast<__nv_bfloat16*>(g16), resolved, nsplit, share, part, Bp, Bk, H,
+               Kv, Sq, D, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (flash_carry_bwd_uses_mma(q_dtype, kv_dtype, Sq, D)) {
     // q rows are copied as 16-byte vectors, acc-sized rows read as float4,
-    // dq / dk / dv written as bf16 pairs
+    // dq / dk / dv written as bf16 pairs (as 4-element groups by the sum)
     if (q_sb % 8 || q_ss % 8 || q_sh % 8 || misaligned(q, 16) || misaligned(acc, 16) ||
         misaligned(acc_new, 16) || misaligned(g_acc, 16) || misaligned(dacc, 16) ||
-        misaligned(g16, 16) || misaligned(dq, 4) || misaligned(dk, 4) || misaligned(dv, 4))
+        misaligned(g16, 16) || misaligned(dq, 4) || misaligned(dk, 8) || misaligned(dv, 8) ||
+        (nsplit > 1 && misaligned(part, 16)))
       return static_cast<int>(cudaErrorMisalignedAddress);
     err = D == 64 ? launch_mma<64>(a, s) : launch_mma<128>(a, s);
   } else {

@@ -78,10 +78,14 @@ FLASH_CARRY_BWD = Kernel("flash_carry_bwd", {
         _P, _P, _P, _P,                 # scratch: tie max, tie w, g16, flags
         _I, _I, _I, _I, _I, _I,         # B', Bk, H, Kv, Sq, D
         _I, _I, ctypes.c_float,         # causal, window, scale
+        _I, _P, _P,                     # pass B's split: nsplit, shares, partials
         _P,                             # stream
     ],
     "flash_carry_bwd_uses_mma": [_I, _I, _I, _I],
+    "flash_carry_bwd_keys_resident": [_I, _P],
 })
+BWD_TILE = 64        # tensor-core backward: pass A's query rows, pass B's keys
+BWD_SHARE_ITEMS = 4  # the fewest query tiles a split share takes on average
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -132,6 +136,71 @@ def backward_work(q, k, m, acc, *, pairs: int | None = None):
              + 8 * m.numel() * 4 + 4 * acc.numel() * 4)
     kind = "bf16" if q.dtype == k.dtype == torch.bfloat16 else "fp32"
     return 12 * d * h * pairs, moved, kind
+
+
+def backward_nsplit(bp: int, bk: int, t: int, kvh: int, rows: int,
+                    resident: int) -> int:
+    """Pass B's shares a key tile (tensor-core body) for B' query rows, Bk
+    K/V rows of T keys, Kv KV heads and ``rows`` flattened query rows a
+    (query row, KV head): 1 where its Bk·Kv·⌈T/64⌉ blocks fill two waves
+    of the card's ``resident`` blocks; else enough shares for about four
+    waves, at most 16 and with at least ``BWD_SHARE_ITEMS`` query tiles a
+    share on average (a shorter share costs more in its partials than it
+    gains in fill)."""
+    base = bk * kvh * -(-t // BWD_TILE)
+    if base == 0 or base >= 2 * resident:
+        return 1
+    cap = min(16, bp * -(-rows // BWD_TILE) // (bk * BWD_SHARE_ITEMS))
+    return max(1, min(cap, -(-4 * resident // base)))
+
+
+def backward_shares(start, ntile: int, nsplit: int):
+    """[Bk, nsplit + 1] int32 from ``start`` [Bk + 1] (the first of each
+    K/V row's query rows in ``order``): share s of K/V row kr takes its
+    items [shares[kr, s], shares[kr, s + 1]), item n being query tile n %
+    ntile of the (n // ntile)-th query row that reads kr; contiguous, in
+    order, and as even as whole items allow."""
+    n = (start[1:] - start[:-1]).long() * ntile
+    s = torch.arange(nsplit + 1, device=start.device)
+    return (n[:, None] * s[None, :] // nsplit).to(torch.int32).contiguous()
+
+
+_RESIDENT: dict = {}
+
+
+def backward_split(q, k) -> int:
+    """``backward_nsplit`` for one launch on q's card: its resident blocks
+    of pass B from the occupancy the library reports (1 for the CUDA-core
+    body, which has no split)."""
+    bp, sq, h, d = q.shape
+    bk, t, kvh, _ = k.shape
+    lib = FLASH_CARRY_BWD.lib()
+    if not lib.flash_carry_bwd_uses_mma(DTYPE_CODES[q.dtype],
+                                        DTYPE_CODES[k.dtype], sq, d):
+        return 1
+    key = (q.device.index, d)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(q.device):
+            FLASH_CARRY_BWD.check(lib.flash_carry_bwd_keys_resident(
+                d, ctypes.byref(out)))
+        _RESIDENT[key] = out.value
+    return backward_nsplit(bp, bk, t, kvh, h // kvh * sq, _RESIDENT[key])
+
+
+def backward_blocks(q, k, nsplit: int) -> dict:
+    """Blocks of each pass of one tensor-core backward launch (as
+    ``csrc/flash_carry_bwd.cu``'s ``launch_mma`` sizes them): the fp32
+    preamble (256 threads, D/4 a row), pass A, pass B and, when split,
+    the sum of its partials (256 threads, 4 elements each)."""
+    bp, sq, h, d = q.shape
+    bk, t, kvh, _ = k.shape
+    out = {"prep": -(-bp * h * sq // (256 // (d // 4))),
+           "rows": -(-(h // kvh * sq) // BWD_TILE) * kvh * bp,
+           "keys": -(-t // BWD_TILE) * nsplit * kvh * bk}
+    if nsplit > 1:
+        out["sum"] = -(-bk * t * kvh * d // (4 * 256))
+    return out
 
 
 def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
@@ -302,11 +371,13 @@ def flash_carry_backward_plain(q, k, v, m, l, acc, q_off, k_off, klen,
 def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
                               kv_row, m_new, l_new, acc_new, g_m, g_l,
                               g_acc, *, causal: bool, window: int = 0):
-    """One launch of the backward kernel (its two passes): the tensor-core
-    body for bf16 q and K/V with Sq > 1 at head_dim 64 or 128, the
-    CUDA-core body otherwise. Query rows are grouped by the K/V row they
-    read (a stable argsort), so pass B sums each K/V row's gradients over
-    them in a fixed order."""
+    """One launch of the backward kernel: the tensor-core body for bf16 q
+    and K/V with Sq > 1 at head_dim 64 or 128, the CUDA-core body
+    otherwise. Query rows are grouped by the K/V row they read (a stable
+    argsort), so pass B sums each K/V row's gradients over them in a fixed
+    order; where its blocks would not fill the card it splits each key
+    tile's items into ``backward_split`` shares (``backward_shares``),
+    whose fp32 partials the kernel sums in share order."""
     require_cuda_tensors("flash_carry_bwd", q, k, v, m, l, acc, q_off,
                          k_off, klen, kv_row, m_new, l_new, acc_new, g_m,
                          g_l, g_acc)
@@ -371,8 +442,14 @@ def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
     tie_max = torch.empty(sh, device=dev)
     tie_w = torch.empty(sh, device=dev)
     g16 = torch.empty(ash if mma else (8,), dtype=torch.bfloat16, device=dev)
-    tiles = (h // kvh * sq + 63) // 64       # pass A's 64-row tiles
+    tiles = (h // kvh * sq + BWD_TILE - 1) // BWD_TILE   # 64-row tiles
     flags = torch.empty((bp * kvh * tiles,), dtype=torch.int32, device=dev)
+    nsplit, shares, part = 1, None, None
+    if mma:
+        nsplit = backward_split(q, k)
+        shares = backward_shares(start, tiles, nsplit)
+        if nsplit > 1:
+            part = torch.empty((2, nsplit, bk, t, kvh, d), device=dev)
     err = lib.flash_carry_bwd(
         q.data_ptr(), *q.stride()[:3], DTYPE_CODES[q.dtype],
         k.data_ptr(), v.data_ptr(), *k.stride()[:3], DTYPE_CODES[k.dtype],
@@ -384,7 +461,9 @@ def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
         dv.data_ptr(), dm.data_ptr(), dl.data_ptr(), dacc.data_ptr(),
         tie_max.data_ptr(), tie_w.data_ptr(), g16.data_ptr(),
         flags.data_ptr(), bp, bk, h, kvh, sq, d, int(causal), int(window),
-        1.0 / math.sqrt(d), stream_handle(dev))
+        1.0 / math.sqrt(d), nsplit,
+        None if shares is None else shares.data_ptr(),
+        None if part is None else part.data_ptr(), stream_handle(dev))
     FLASH_CARRY_BWD.check(err)
     FLASH_CARRY_BWD.launches += 1
     return outs

@@ -721,29 +721,52 @@ BWD_HOPS = {
 }
 
 
+# hops whose pass B splits each key tile's items over several blocks
+# (``backward_split`` > 1: fp32 partials summed in share order): (hop as
+# above, query rows a K/V row, the causal diagonal): internvl2's GQA-7 on 2
+# rows (64 pass B blocks); 8 query rows over 2 K/V rows at qwen3's widths;
+# 200 keys, not a multiple of 64; hop 0's diagonal with every row
+# resolved, so that at the last key tile the first shares hold only dead
+# (skipped) tiles and their partials must be zero
+BWD_SPLIT = {
+    "split_gqa7": ((2, 2, 1024, 14, 2, 64, 0, "bf16", "bf16"), 1, False),
+    "split_kv_row_shared": ((4, 8, 256, 16, 8, 128, 0, "bf16", "bf16"), 4,
+                            False),
+    "split_ragged_t": ((2, 2, 200, 14, 2, 64, 0, "bf16", "bf16"), 1, False),
+    "split_dead_shares": ((2, 2, 512, 14, 2, 64, 0, "bf16", "bf16"), 1,
+                          True),
+}
+
+
 def _bwd_hop(cuda, case):
     """(q, k, v, m, l, acc), (q_off, k_off, klen, kv_row) and the options
     of one backward case. "kv_row" is qwen3's hop read through ``kv_row``
     with every K/V row shared by two query rows (``baseline`` mode's
-    repeat), in a shuffled order."""
+    repeat), in a shuffled order; ``BWD_SPLIT``'s are split hops."""
     g = torch.Generator(device=cuda).manual_seed(5)
     name = "qwen3" if case == "kv_row" else case
-    n, rows, s_l, h, kvh, hd, window, qdt, kvdt = BWD_HOPS[name]
+    share, diag = (2, False) if case == "kv_row" else (1, False)
+    if case in BWD_SPLIT:
+        hop, share, diag = BWD_SPLIT[case]
+    else:
+        hop = BWD_HOPS[name]
+    n, rows, s_l, h, kvh, hd, window, qdt, kvdt = hop
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
     pe = torch.arange(n, device=cuda).repeat_interleave(rows // n)
-    src = (pe - 1) % n
+    src = pe if diag else (pe - 1) % n
     t = 256 if name == "sq1" else s_l
-    bk = rows // 2 if case == "kv_row" else rows
+    bk = rows // share
     q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(dt[qdt])
     k = torch.randn(bk, t, kvh, hd, generator=g, device=cuda).to(dt[kvdt])
     v = torch.randn(bk, t, kvh, hd, generator=g, device=cuda).to(dt[kvdt])
     m = torch.randn(rows, h, s_l, generator=g, device=cuda)
-    m[::3] = -1e30                      # rows still at the sentinel
+    if not diag:
+        m[::3] = -1e30                  # rows still at the sentinel
     l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
     acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
     kv_row = None
-    if case == "kv_row":
-        kv_row = torch.arange(bk, device=cuda).repeat_interleave(2)[
+    if share > 1:
+        kv_row = torch.arange(bk, device=cuda).repeat_interleave(share)[
             torch.randperm(rows, generator=g, device=cuda)]
     if name == "sq1":                   # a decode-shaped row: pos + 1 keys
         ints = (0 * pe, src * t,
@@ -758,7 +781,7 @@ def _bwd_hop(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [*BWD_HOPS, "kv_row"])
+@pytest.mark.parametrize("case", [*BWD_HOPS, "kv_row", *BWD_SPLIT])
 def test_cuda_flash_carry_grads_at_training_hop(cuda, case):
     """``_FlashCarry``'s backward is the backward kernel (one launch of
     ``flash_carry_bwd``), bit-identical from call to call, and within the
@@ -769,8 +792,10 @@ def test_cuda_flash_carry_grads_at_training_hop(cuda, case):
     FlashAttention-2 does); the fp32 state gradients within 1e-5 of
     max(1, the largest); the CUDA-core body's fp32 gradients within 1e-4
     (fp32 sums in another order, the matmul's relative bound of
-    ``tests/test_kernels.py``)."""
+    ``tests/test_kernels.py``). ``BWD_SPLIT``'s hops split pass B."""
     ins, ints, opts = _bwd_hop(cuda, case)
+    if case in BWD_SPLIT:
+        assert fk.backward_split(ins[0], ins[1]) > 1
     g = torch.Generator(device=cuda).manual_seed(6)
     diff = [x.clone().requires_grad_(True) for x in ins]
     outs = fk._FlashCarry.apply(*diff, *ints, opts["causal"],

@@ -277,3 +277,101 @@ def test_backward_work_counts_twelve_d_a_pair():
     assert moved == 2 * 2 * 8 * 4 * 64 * 2 + 4 * 2 * 12 * 2 * 64 * 2 \
         + 8 * 2 * 4 * 8 * 4 + 4 * 2 * 4 * 8 * 64 * 4
     assert fk.backward_work(q, k, m, acc, pairs=0)[0] == 0
+
+
+# pass B's split plan of the tensor-core backward (``backward_nsplit``,
+# ``backward_shares``): pure functions of the shapes and ``start``. An H100
+# holds 132 SMs; pass B's blocks an SM as the card's occupancy reports
+# them at head_dim 64 and 128.
+H100_RESIDENT = {64: 132 * 3, 128: 132 * 2}
+# (B', Bk, T, Kv, flattened query rows a (row, KV head), head_dim): hop 1
+# of each family's training step, as phase 2 of chip_smoke.py runs them
+TRAIN_HOPS = {
+    "qwen3": (32, 32, 256, 8, 2 * 256, 128),
+    "zamba2": (16, 16, 512, 32, 512, 64),
+    "internvl2": (8, 8, 1024, 2, 7 * 1024, 64),
+    "mixtral": (4, 4, 512, 8, 6 * 512, 128),
+    "whisper": (32, 32, 224, 6, 224, 64),
+}
+
+
+@pytest.mark.parametrize("hop", sorted(TRAIN_HOPS))
+def test_backward_nsplit_fills_the_card_only_where_needed(hop):
+    """No split where pass B's Bk·Kv·⌈T/64⌉ blocks fill two waves of the
+    card (qwen3: 1024 blocks, zamba2: 4096); at the GQA hops (256 blocks)
+    enough shares for at least 1,000 blocks, within the average query
+    tiles of a K/V row over shares of at least ``BWD_SHARE_ITEMS``
+    (whisper's 768 blocks, under two waves, hold 4 query tiles a K/V row:
+    no split)."""
+    bp, bk, t, kvh, rows, d = TRAIN_HOPS[hop]
+    resident = H100_RESIDENT[d]
+    n = fk.backward_nsplit(bp, bk, t, kvh, rows, resident)
+    base = bk * kvh * -(-t // 64)
+    cap = min(16, bp * -(-rows // 64) // (bk * fk.BWD_SHARE_ITEMS))
+    assert 1 <= n <= max(1, cap)
+    if hop in ("qwen3", "zamba2", "whisper"):
+        assert n == 1
+    if hop in ("internvl2", "mixtral"):
+        assert n > 1 and base * n >= 1000
+    if base >= 2 * resident:
+        assert n == 1
+    else:                       # two waves at least, or as many as allowed
+        assert base * n >= 2 * resident or n == cap
+    assert fk.backward_nsplit(bp, 0, t, kvh, rows, resident) == 1
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("counts", [[1, 1, 1, 1], [4, 0, 2, 1, 0], [0, 0],
+                                    [8]])
+def test_backward_shares_take_every_item_once_in_order(counts, nsplit):
+    """Every (query row, query tile) item of every K/V row falls in exactly
+    one share: share s of K/V row kr takes the contiguous items
+    [shares[kr, s], shares[kr, s + 1]), the shares in order from 0 to the
+    row's item count (``order``'s order), as even as whole items allow
+    (zero-count rows give empty shares)."""
+    ntile = 5
+    start = torch.zeros(len(counts) + 1, dtype=torch.int32)
+    start[1:] = torch.cumsum(torch.tensor(counts), 0)
+    shares = fk.backward_shares(start, ntile, nsplit)
+    assert shares.dtype == torch.int32 and shares.is_contiguous()
+    assert tuple(shares.shape) == (len(counts), nsplit + 1)
+    for kr, c in enumerate(counts):
+        row = shares[kr].tolist()
+        assert row[0] == 0 and row[-1] == c * ntile
+        assert all(x <= y for x, y in zip(row, row[1:]))
+        taken = [n for s in range(nsplit) for n in range(row[s], row[s + 1])]
+        assert taken == list(range(c * ntile))
+        sizes = [y - x for x, y in zip(row, row[1:])]
+        assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("hop, want", [
+    # qwen3-0.6b's training hop 1 (PE 0's rows see no key): the bound
+    # the first form was held to in phase 2, 0.1214 ms by bytes
+    ("qwen3", (38654705664, 406847488, "bf16", 0.12144701134328358,
+               "bytes")),
+    # internvl2-1b's hop 1: 0.0474 ms by bytes
+    ("internvl2", (45097156608, 158859264, "bf16", 0.04742067582089552,
+                   "bytes")),
+])
+def test_backward_work_keeps_the_earlier_bound(hop, want):
+    """The redesign does the same work: ``backward_work`` at the live pairs
+    of two training hops gives the operations, bytes and bound that the
+    kernel's first form was held to (the bound does not move)."""
+    from repro_torch.roofline import hw
+    bp, _, t, kvh, rows, d = TRAIN_HOPS[hop]
+    h, sq = rows // t * kvh, t
+    n_pe = 4 if hop == "qwen3" else 2
+    pe = torch.arange(n_pe).repeat_interleave(bp // n_pe)
+    mask = fk.key_mask(pe * sq, (pe - 1) % n_pe * sq,
+                       torch.full((bp,), 2 ** 30), sq, t, causal=True,
+                       window=0)
+    bf = torch.bfloat16
+    q = torch.empty(bp, sq, h, d, dtype=bf, device="meta")
+    k = torch.empty(bp, t, kvh, d, dtype=bf, device="meta")
+    m = torch.empty(bp, h, sq, device="meta")
+    acc = torch.empty(bp, h, sq, d, device="meta")
+    flops, moved, kind = fk.backward_work(q, k, m, acc,
+                                          pairs=int(mask.sum()))
+    assert (flops, moved, kind) == want[:3]
+    assert hw.bound_ms(moved, flops, kind) == want[3:]
