@@ -283,7 +283,8 @@ BACKWARD_LABELS = ("flash_carry_backward", "tile_matmul_backward",
                    "ssd_chunks_backward")
 # the kernels a range launches: their ctypes launches fall in no host range,
 # so ``profile`` adds the kernels' device time to the range's (the SSD
-# backward's two passes: ssd_bwd_kernel[_mma], ssd_bwd_reduce)
+# backward's passes: ssd_bwd_prep_kernel, ssd_bwd_kernel[_mma],
+# ssd_bwd_rows_kernel, ssd_bwd_reduce_kernel)
 LABEL_KERNELS = {"flash_carry_backward": "flash_carry_bwd_kernel",
                  "ssd_chunks_backward": "ssd_bwd_"}
 
@@ -1401,48 +1402,68 @@ def check_ssd(torch, sk, dev):
     return out
 
 
+def ssd_bwd_case(torch, g, dev, dtype, case):
+    """(args, ups, opts) of an ``SSD_BWD_CASES`` case: the forward's
+    inputs in ``dtype`` and random fp32 cotangents of its three outputs,
+    from the generator ``g``."""
+    bsz, h, grp, seq, l, p, n, _, _ = SSD_CASES[case]
+    nc, bh = seq // l, bsz * h
+    args = ssd_inputs(torch, g, dev, dtype, case)
+    ups = [torch.randn(shape, generator=g, device=dev) for shape in
+           ((bh, nc, l, p), (bh, nc, p, n), (bh, nc, l, 1))]
+    return args, ups, dict(nheads=h, ngroups=grp)
+
+
+def ssd_bwd_want(torch, sk, args, ups, opts):
+    """The oracle of the SSD backward kernel: autograd of the forward
+    twin taken in float64 (``cum`` the same fp32 values)."""
+    wide = [t.double().requires_grad_(True) for t in args]
+    return torch.autograd.grad(sk.ssd_chunks_plain(*wide, **opts), wide,
+                               [u.double() for u in ups])
+
+
+def ssd_bwd_errors(torch, got, want):
+    """(errors, bounds, all within and finite) of the five gradients
+    against the float64 oracle: bf16 dx, dB and dC within 2^-7 of the
+    largest (the products take bf16 operands), ddt and da and every fp32
+    gradient within 1e-4 of max(1, the largest)."""
+    errs, tols, ok = [], [], True
+    for x, y in zip(got, want):
+        big = float(y.abs().max())
+        tol = 2 ** -7 * big if x.dtype == torch.bfloat16 else \
+            1e-4 * max(1.0, big)
+        err = float((x.double() - y).abs().max())
+        ok = ok and err <= tol and bool(torch.isfinite(x).all())
+        errs.append(err)
+        tols.append(tol)
+    return errs, tols, ok
+
+
 def check_ssd_backward(torch, sk, dev):
     """The backward kernel at ``SSD_BWD_CASES`` in fp32 and bf16 against
-    the twin's autograd taken in float64 (``cum`` the same fp32 values):
-    bf16 dx, dB and dC within 2^-7 of the largest (the products take bf16
-    operands), ddt and da and every fp32 gradient within 1e-4 of max(1,
-    the largest); finite; two calls bit-identical. The oracle is float64
-    because da is ill-conditioned (an error in dcum[t] reaches it times
-    sum_{s<=t} dt[s]): at the overflow case the fp32 twin's own da misses
-    1e-4 of its largest against the float64 value
-    (``tests/test_torch_ssd_backward.py``). Timed beside its bound,
-    the closed-form twin and the twin's autograd in fp32 (the card's SSD
-    backward before the kernel)."""
+    the twin's autograd taken in float64 (``ssd_bwd_errors``); finite; two
+    calls bit-identical. The oracle is float64 because da is
+    ill-conditioned (an error in dcum[t] reaches it times sum_{s<=t}
+    dt[s]): at the overflow case the fp32 twin's own da misses 1e-4 of its
+    largest against the float64 value
+    (``tests/test_torch_ssd_backward.py``). Timed beside its bound, each
+    pass's device time, the closed-form twin and the twin's autograd in
+    fp32 (the card's SSD backward before the kernel)."""
     g = torch.Generator(device=dev).manual_seed(8)
     out = []
     for case in SSD_BWD_CASES:
-        bsz, h, grp, seq, l, p, n, _, _ = SSD_CASES[case]
-        nc, bh = seq // l, bsz * h
-        opts = dict(nheads=h, ngroups=grp)
         for dtype in (torch.float32, torch.bfloat16):
-            args = ssd_inputs(torch, g, dev, dtype, case)
-            ups = [torch.randn(shape, generator=g, device=dev) for shape in
-                   ((bh, nc, l, p), (bh, nc, p, n), (bh, nc, l, 1))]
+            args, ups, opts = ssd_bwd_case(torch, g, dev, dtype, case)
             call = lambda: sk.ssd_chunks_backward_cuda(  # noqa: E731
                 *args, *ups, **opts)
             before = sk.SSD_CHUNKS_BWD.launches
             got, again = call(), call()
             launched = sk.SSD_CHUNKS_BWD.launches - before
-            wide = [t.double().requires_grad_(True) for t in args]
-            want = torch.autograd.grad(sk.ssd_chunks_plain(*wide, **opts),
-                                       wide, [u.double() for u in ups])
-            del wide
+            want = ssd_bwd_want(torch, sk, args, ups, opts)
             torch.cuda.synchronize()
             same = all(torch.equal(u, w) for u, w in zip(got, again))
-            ok, errs, tols = same and launched == 2, [], []
-            for x, y in zip(got, want):
-                big = float(y.abs().max())
-                tol = 2 ** -7 * big if x.dtype == torch.bfloat16 else \
-                    1e-4 * max(1.0, big)
-                err = float((x.double() - y).abs().max())
-                ok = ok and err <= tol and bool(torch.isfinite(x).all())
-                errs.append(err)
-                tols.append(tol)
+            errs, tols, within = ssd_bwd_errors(torch, got, want)
+            ok = same and launched == 2 and within
             del got, again, want
             flops, moved, kind = sk.backward_work(*args, **opts)
             b_ms, b_by = bound(moved, flops, kind)
@@ -1455,6 +1476,7 @@ def check_ssd_backward(torch, sk, dev):
             rec = {"case": name, "max_abs_err": max(errs), "errors": errs,
                    "tols": tols, "ok": ok, "bit_identical": same,
                    "ms": time_ms(call, iters=10, only="ssd_bwd_"),
+                   "passes_ms": split_ms(call, "ssd_bwd_"),
                    "plain_ms": time_ms(lambda: sk.ssd_chunks_backward_plain(
                        *args, *ups, **opts), iters=3),
                    "twin_backward_ms": time_ms(twin_autograd, iters=3),
@@ -1462,11 +1484,13 @@ def check_ssd_backward(torch, sk, dev):
                    "flops": flops, "bytes": moved,
                    "shape": {"x": list(args[0].shape),
                              "b": list(args[3].shape), "dtype": str(dtype)}}
+            passes = {b: round(ms, 4) for b, ms in
+                      (rec["passes_ms"] or {}).items()}
             log(f"[kernels] ssd_chunks_bwd {name}: errors (dx, ddt, da, db, "
                 f"dc) {[f'{e:.3e}' for e in errs]} (tols "
                 f"{[f'{t:.3e}' for t in tols]}), bit-identical {same}: "
-                f"kernel {rec['ms']:.4f} ms, closed-form twin "
-                f"{rec['plain_ms']:.4f} ms, twin's autograd (fp32) "
+                f"kernel {rec['ms']:.4f} ms (passes {passes}), closed-form "
+                f"twin {rec['plain_ms']:.4f} ms, twin's autograd (fp32) "
                 f"{rec['twin_backward_ms']:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by} at the {kind} peak), library n/a"
                 + ratio_text(rec))
@@ -4695,8 +4719,8 @@ def main() -> int:
         for b in ssd_bwd:
             if b["case"] == rec["case"]:
                 rec["backward"] = {k: b[k] for k in (
-                    "ms", "bound_ms", "bound_by", "max_abs_err", "plain_ms",
-                    "twin_backward_ms")}
+                    "ms", "passes_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "plain_ms", "twin_backward_ms")}
     bad = [r["case"] for r in flash + flash_bwd + mm + blocks + conv + ffts
            + ssds + ssd_bwd if not r["ok"]]
     if bad:

@@ -52,12 +52,18 @@ SSD_CHUNKS = Kernel("ssd_chunks", {
     "ssd_chunks": [_P] * 8 + [_I] * 8 + [_P],
 })
 SSD_CHUNKS_BWD = Kernel("ssd_chunks_bwd", {
-    # x, dt, a, b, c, gy, gs, ge, dx, ddt, da, db, dc, scratch (db, dc per
-    # head; da per chunk), BH, NC, L, P, N, nheads, ngroups, dtype, stream
-    "ssd_chunks_bwd": [_P] * 16 + [_I] * 8 + [_P],
+    # x, dt, a, b, c, gy, gs, ge, dx, ddt, da, db, dc, scratch (db_part,
+    # dc_part, rows32, rows64, da_part: ``backward_scratch``), BH, NC, L,
+    # P, N, nheads, ngroups, slices, dtype, stream
+    "ssd_chunks_bwd": [_P] * 18 + [_I] * 9 + [_P],
+    # L, P, N, dtype, out: pass A's resident blocks on the current card
+    "ssd_chunks_bwd_resident": [_I] * 4 + [_P],
+    # L, P, N, dtype: whether pass A's shared memory holds the shapes
+    "ssd_chunks_bwd_takes": [_I] * 4,
 })
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_P, MAX_N = 64, 128          # the kernel's register micro tiles
+BWD_TILE = 64                   # rows of s and of t a tile, in pass A
 
 
 def group_rows(bh: int, nheads: int, ngroups: int, device) -> torch.Tensor:
@@ -106,7 +112,7 @@ def work(x, dt, a, b, c, *, nheads: int, ngroups: int):
 
 
 def backward_work(x, dt, a, b, c, *, nheads: int, ngroups: int):
-    """(operations, bytes, type) of one backward launch (its two passes).
+    """(operations, bytes, type) of one backward launch (all its passes).
     Operations: C Bᵀ on the causal triangle once per (group row, chunk);
     per (head row, chunk) the triangles of gy xᵀ, Mᵀ gy, dCB B and dCBᵀ C,
     and the two full products B gsᵀ and x gs. Bytes: the five inputs and
@@ -120,6 +126,88 @@ def backward_work(x, dt, a, b, c, *, nheads: int, ngroups: int):
     moved = 2 * count.nbytes(x, dt, a, b, c) + 4 * bh * nc * (l * p + p * n + l)
     kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     return flops, moved, kind
+
+
+def backward_plan(bg: int, nc: int, l: int, hpg: int, resident: int, *,
+                  tensor_cores: bool = True) -> int:
+    """Head slices a group of the backward's pass A, for BG group rows of
+    NC chunks of L rows with ``hpg`` heads a group: the fewest whose blocks
+    (``backward_grid``) fill two waves of the card's ``resident`` blocks,
+    at most one a head. Each block runs its slice's heads in order and
+    sums their dCB, so fewer slices mean fewer partial sums to add up
+    (``backward_scratch``) and fewer S products, more slices a fuller
+    card."""
+    tiles = -(-l // BWD_TILE) if tensor_cores else 1
+    base = bg * nc * tiles
+    return max(1, min(hpg, -(-2 * resident // base)))
+
+
+def backward_heads(hpg: int, slices: int):
+    """[(first, end)] of each slice's heads within a group: contiguous, in
+    order and as even as whole heads allow (``slice_of`` in
+    ``csrc/ssd_chunks_bwd.cu``)."""
+    return [(k * hpg // slices, (k + 1) * hpg // slices)
+            for k in range(slices)]
+
+
+def backward_grid(bg: int, nc: int, l: int, hpg: int, slices: int, *,
+                  tensor_cores: bool = True):
+    """Pass A's blocks in launch order, each (s tile, group row, chunk,
+    first head, end head, t tiles): on the tensor cores one block per (s
+    tile, group row, chunk, slice), s tiles slowest (the first have the
+    most t tiles: the tiles at or below the diagonal); the CUDA-core body
+    one per (group row, chunk, slice), over every tile pair."""
+    ns = -(-l // BWD_TILE)
+    heads = backward_heads(hpg, slices)
+    cells = [(gr, ch, first, end) for gr in range(bg) for ch in range(nc)
+             for first, end in heads]
+    if not tensor_cores:
+        return [(None, gr, ch, first, end, None)
+                for gr, ch, first, end in cells]
+    return [(st, gr, ch, first, end, tuple(range(st, ns)))
+            for st in range(ns) for gr, ch, first, end in cells]
+
+
+def backward_scratch(bh: int, bg: int, nc: int, l: int, n: int, slices: int,
+                     *, tensor_cores: bool = True) -> dict:
+    """Shapes of the backward's scratch: the dB and dC partial sums of each
+    slice (fp32; dC also of each s tile on the tensor cores), the chunks'
+    shares of da (float64) and, on the tensor cores, the per-row arrays
+    (fp32: cum, w, v, ddt's first term; float64: Q's column sums, then
+    its row sums per s tile)."""
+    ns = -(-l // BWD_TILE)
+    sparts = ns if tensor_cores else 1
+    return {"db_part": (bg, nc, slices, l, n),
+            "dc_part": (bg, nc, slices, sparts, l, n),
+            "rows32": (4, bh, nc, l) if tensor_cores else (0,),
+            "rows64": ((1 + ns) * bh * nc * l,) if tensor_cores else (0,),
+            "da_part": (bh, nc)}
+
+
+_RESIDENT: dict = {}
+
+
+def backward_resident(x, b) -> int:
+    """Pass A's resident blocks on x's card at these shapes (blocks an SM
+    times SMs, from the occupancy the library reports)."""
+    l, p, n = x.shape[2], x.shape[3], b.shape[-1]
+    code = DTYPE_CODES[x.dtype]
+    key = (x.device.index, code, l, p, n)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(x.device):
+            SSD_CHUNKS_BWD.check(SSD_CHUNKS_BWD.lib().ssd_chunks_bwd_resident(
+                l, p, n, code, ctypes.byref(out)))
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
+def backward_slices(x, b, *, nheads: int, ngroups: int) -> int:
+    """``backward_plan`` for one launch on x's card."""
+    bh, nc, l, _ = x.shape
+    return backward_plan(b.shape[0], nc, l, nheads // ngroups,
+                         backward_resident(x, b),
+                         tensor_cores=x.dtype == torch.bfloat16)
 
 
 def ssd_chunks_plain(x, dt, a, b, c, *, nheads: int, ngroups: int):
@@ -257,8 +345,9 @@ def ssd_chunks_backward_plain(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
 
 def ssd_chunks_backward_cuda(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
                              ngroups: int):
-    """One launch of the backward kernel (its two passes): the tensor-core
-    body for bf16, the CUDA-core body for fp32. None cotangents are zeros."""
+    """One launch of the backward kernel (its passes, ``backward_plan``'s
+    head slices): the tensor-core body for bf16, the CUDA-core body for
+    fp32. None cotangents are zeros."""
     require_cuda_tensors("ssd_chunks_bwd", x, dt, a, b, c, gy, gs, ge)
     _check(x, dt, a, b, c, nheads, ngroups)
     _check_kernel("ssd_chunks_bwd", x, dt, a, b, c)
@@ -281,17 +370,26 @@ def ssd_chunks_backward_cuda(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
 
     gy, gs, ge = cot(gy, (bh, nc, l, p)), cot(gs, (bh, nc, p, n)), \
         cot(ge, (bh, nc, l, 1))
+    if not SSD_CHUNKS_BWD.lib().ssd_chunks_bwd_takes(
+            l, p, n, DTYPE_CODES[x.dtype]):
+        raise ValueError(f"ssd_chunks_bwd: chunk {l} at headdim {p} and state "
+                         f"{n} does not fit the kernel's shared memory")
     x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
     dx, ddt, da, db, dc = outs
-    db_part = torch.empty(bh, nc, l, n, device=dev)
-    dc_part = torch.empty(bh, nc, l, n, device=dev)
-    da_part = torch.empty(bh, nc, dtype=torch.float64, device=dev)
+    slices = backward_slices(x, b, nheads=nheads, ngroups=ngroups)
+    shapes = backward_scratch(bh, b.shape[0], nc, l, n, slices,
+                              tensor_cores=x.dtype == torch.bfloat16)
+    wide = {"rows64", "da_part"}
+    scratch = {k: torch.empty(shape, device=dev, dtype=torch.float64
+                              if k in wide else torch.float32)
+               for k, shape in shapes.items()}
     err = SSD_CHUNKS_BWD.lib().ssd_chunks_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
         gy.data_ptr(), gs.data_ptr(), ge.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(),
-        bh, nc, l, p, n, nheads, ngroups, DTYPE_CODES[x.dtype],
+        *(scratch[k].data_ptr() for k in ("db_part", "dc_part", "rows32",
+                                          "rows64", "da_part")),
+        bh, nc, l, p, n, nheads, ngroups, slices, DTYPE_CODES[x.dtype],
         stream_handle(dev))
     SSD_CHUNKS_BWD.check(err)
     SSD_CHUNKS_BWD.launches += 1

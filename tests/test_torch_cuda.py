@@ -510,12 +510,35 @@ def test_cuda_mamba_prefill_launches_ssd_once_per_layer(cuda):
 
 
 SSD_GRADS = ("dx", "ddt", "da", "db", "dc")
+# (batch, heads, groups, L, P, N, slices): heads a group that the backward
+# plan splits into uneven slices (6 into 4, 5 into 3) at a chunk count
+# chosen for the card's resident blocks (``ssd_slice_case``)
+SSD_SLICE_CASES = {"slices_6h_1g": (1, 6, 1, 64, 64, 64, 4),
+                   "slices_5h_2g": (1, 10, 2, 64, 64, 64, 3)}
+
+
+def ssd_slice_case(dev, dtype, case):
+    """An ``SSD_CASES``-style tuple for a ``SSD_SLICE_CASES`` case: the
+    chunks that make the plan pick its slices on this card, which leave
+    the group's heads in slices of unequal size."""
+    bsz, h, g, l, p, n, want = SSD_SLICE_CASES[case]
+    tc = dtype == torch.bfloat16
+    probe = torch.empty(1, 1, l, p, dtype=dtype, device=dev)
+    resident = sk.backward_resident(probe, probe.new_empty(1, 1, l, n))
+    tiles = -(-l // sk.BWD_TILE) if tc else 1
+    nc = -(-2 * resident // (want * bsz * g * tiles))
+    slices = sk.backward_plan(bsz * g, nc, l, h // g, resident,
+                              tensor_cores=tc)
+    sizes = {end - first for first, end in sk.backward_heads(h // g, slices)}
+    assert slices == want and len(sizes) > 1, (resident, nc, slices)
+    return bsz, h, g, nc, l, p, n, None, 0.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["zamba2_prefill", "full_width", "groups2",
-                                  "ragged", "small", "overflow"])
+                                  "ragged", "small", "overflow",
+                                  *SSD_SLICE_CASES])
 def test_cuda_ssd_chunks_grads_vs_twin(cuda, dtype, case):
     """``_SSDChunks`` on the card: one forward and one backward kernel
     launch, against the twin's autograd at the same inputs, taken in
@@ -527,8 +550,10 @@ def test_cuda_ssd_chunks_grads_vs_twin(cuda, dtype, case):
     because da is ill-conditioned: an error in dcum[t] reaches it times
     sum_{s<=t} dt[s], and at an overflow case (a = -4, cum near -1300)
     the fp32 twin's own da misses 1e-4 of its largest against the float64
-    value (``tests/test_torch_ssd_backward.py``)."""
-    bsz, h, g, nc, l, p, n, a_val, shift = SSD_CASES[case]
+    value (``tests/test_torch_ssd_backward.py``). The ``SSD_SLICE_CASES``
+    run the plan's uneven head slices."""
+    bsz, h, g, nc, l, p, n, a_val, shift = SSD_CASES[case] \
+        if case in SSD_CASES else ssd_slice_case(cuda, dtype, case)
     args = ssd_inputs(cuda, dtype, bsz, h, g, nc, l, p, n, a_val, shift,
                       seed=4)
     gen = torch.Generator(device=cuda).manual_seed(5)

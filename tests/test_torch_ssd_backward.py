@@ -260,3 +260,109 @@ def test_backward_work_counts_the_causal_triangles():
     assert moved == 2 * inputs + 4 * bh * nc * (l * p + p * n + l)
     assert sk.backward_work(x.float(), dt, a, b.float(), b.float(), nheads=4,
                             ngroups=1)[2] == "fp32"
+
+
+# The backward kernel's plan (``backward_plan``, ``backward_heads``,
+# ``backward_grid``, ``backward_scratch``: pure functions that the wrapper
+# passes through the C entry). H100: 132 SMs; pass A's shared memory holds
+# one tensor-core block an SM (132 resident), 264 checks a card that held two.
+H100_RESIDENT = (132, 264)
+# (batch * groups, chunks, L, heads a group, N): the two training shapes
+TRAIN_SHAPES = {"zamba2": (4, 8, 256, 64, 64), "mamba2": (4, 8, 256, 64, 128)}
+
+
+@pytest.mark.parametrize("hpg,slices", [(64, 3), (64, 5), (6, 4), (5, 3),
+                                        (5, 2), (7, 7), (1, 1), (32, 9)])
+def test_backward_heads_split_a_group_in_order(hpg, slices):
+    """Every head of a group falls in exactly one slice, slices contiguous
+    and in order, none empty, their sizes within one head of each other."""
+    heads = sk.backward_heads(hpg, slices)
+    assert len(heads) == slices
+    assert heads[0][0] == 0 and heads[-1][1] == hpg
+    assert all(a[1] == b[0] for a, b in zip(heads, heads[1:]))
+    sizes = [end - first for first, end in heads]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("tc", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(2, 3, 256, 6, 4), (3, 2, 100, 5, 3),
+                                   (1, 2, 16, 4, 4), (2, 1, 192, 64, 3)],
+                         ids=["l256", "l100", "l16", "hpg64"])
+def test_backward_grid_covers_every_pair_once(shape, tc):
+    """Every (group row, chunk, head) and every (s, t) tile pair at or below
+    the diagonal falls in exactly one block, each block's heads in order;
+    on the tensor cores s tiles run slowest, the first (most t tiles)
+    first."""
+    bg, nc, l, hpg, slices = shape
+    ns = -(-l // sk.BWD_TILE)
+    grid = sk.backward_grid(bg, nc, l, hpg, slices, tensor_cores=tc)
+    seen = {}
+    for st, gr, ch, first, end, tiles in grid:
+        assert 0 <= first < end <= hpg
+        pairs = [(s, t) for s in range(ns) for t in range(s, ns)] \
+            if st is None else [(st, t) for t in tiles]
+        for h in range(first, end):
+            for pair in pairs:
+                key = (gr, ch, h, pair)
+                seen[key] = seen.get(key, 0) + 1
+    want = {(gr, ch, h, (s, t)) for gr in range(bg) for ch in range(nc)
+            for h in range(hpg) for s in range(ns) for t in range(s, ns)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    if tc:
+        order = [st for st, *_ in grid]
+        assert order == sorted(order)
+        assert len(grid) == bg * nc * slices * ns
+    else:
+        assert len(grid) == bg * nc * slices
+
+
+@pytest.mark.parametrize("resident", H100_RESIDENT)
+@pytest.mark.parametrize("shape", list(TRAIN_SHAPES))
+def test_backward_plan_fills_two_waves(shape, resident):
+    """At zamba2's and mamba2's training shapes the plan's grid fills at
+    least two waves of the card's resident blocks, with the fewest slices
+    that do, in both bodies."""
+    bg, nc, l, hpg, _ = TRAIN_SHAPES[shape]
+    for tc in (True, False):
+        slices = sk.backward_plan(bg, nc, l, hpg, resident, tensor_cores=tc)
+        blocks = len(sk.backward_grid(bg, nc, l, hpg, slices,
+                                      tensor_cores=tc))
+        assert blocks >= 2 * resident
+        if slices > 1:
+            fewer = len(sk.backward_grid(bg, nc, l, hpg, slices - 1,
+                                         tensor_cores=tc))
+            assert fewer < 2 * resident
+
+
+@pytest.mark.parametrize("body,resident", [("bf16", 132), ("bf16", 264),
+                                           ("fp32", 132)])
+@pytest.mark.parametrize("shape", list(TRAIN_SHAPES))
+def test_backward_scratch_is_a_quarter_of_per_head(shape, body, resident):
+    """The dB / dC partial sums at the plan's slices take at most a quarter
+    of the first form's per-head pair [BH, NC, L, N] x 2 (fp32); at
+    zamba2's shape at most 67 MB. The CUDA-core body's 256-thread blocks
+    hold one an SM (132 resident)."""
+    bg, nc, l, hpg, n = TRAIN_SHAPES[shape]
+    bh = bg * hpg
+    per_head = 2 * bh * nc * l * n * 4
+    tc = body == "bf16"
+    slices = sk.backward_plan(bg, nc, l, hpg, resident, tensor_cores=tc)
+    shapes = sk.backward_scratch(bh, bg, nc, l, n, slices, tensor_cores=tc)
+    parts = 4 * sum(int(np.prod(shapes[k])) for k in ("db_part", "dc_part"))
+    assert parts <= per_head / 4
+    if shape == "zamba2":
+        assert parts <= 67e6
+
+
+def test_backward_plan_edges():
+    """One slice where the chunks alone fill the card; one slice a head at
+    most, however small the grid; the CUDA-core body counts no s tiles."""
+    assert sk.backward_plan(64, 64, 256, 8, 132) == 1
+    assert sk.backward_plan(1, 1, 16, 5, 132) == 5
+    assert sk.backward_plan(1, 4, 256, 64, 132) == 17
+    assert sk.backward_plan(1, 4, 256, 64, 132, tensor_cores=False) == 64
+    shapes = sk.backward_scratch(8, 2, 3, 100, 24, 2)
+    assert shapes["dc_part"] == (2, 3, 2, 2, 100, 24)
+    assert shapes["rows64"] == (3 * 8 * 3 * 100,)
+    assert sk.backward_scratch(8, 2, 3, 100, 24, 2, tensor_cores=False)[
+        "dc_part"] == (2, 3, 2, 1, 100, 24)
