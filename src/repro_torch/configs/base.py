@@ -118,6 +118,10 @@ class ModelConfig:
         return self.d_model // max(self.num_heads, 1)
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def n_params(self) -> int:
         """Approximate parameter count (for 6ND model-FLOPs accounting)."""
         return _count_params(self)

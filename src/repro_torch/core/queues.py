@@ -185,7 +185,7 @@ def _sw_hop(topo: Topology, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def checksum(x) -> torch.Tensor:
+def checksum(tree) -> torch.Tensor:
     """Order-independent int32 digest of each PE's payload bits: ``[n_pe]``
     for an element (a tensor or tuple of tensors, PE dimension first).
 
@@ -197,7 +197,7 @@ def checksum(x) -> torch.Tensor:
     digest; an all-zero payload is the blind spot (its digest is 0 like a
     dropped message's; the sequence tag still covers stuck links there)."""
     tot = None
-    for leaf in _leaves(x):
+    for leaf in _leaves(tree):
         if leaf.is_floating_point():
             bits = leaf.float().contiguous().view(torch.int32)
         else:

@@ -114,9 +114,9 @@ def conv_cuda(x, top, bot, weight):
     return out
 
 
-def conv2d_3x3(x, top, bot, weight):
+def conv2d_3x3(x, top, bot, kernel):
     """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    with count.kernel(CONV2D_3X3.name, lambda: work(x, top, bot, weight)):
+    with count.kernel(CONV2D_3X3.name, lambda: work(x, top, bot, kernel)):
         if x.device.type == "cpu":
-            return conv_plain(x, top, bot, weight)
-        return conv_cuda(x, top, bot, weight)
+            return conv_plain(x, top, bot, kernel)
+        return conv_cuda(x, top, bot, kernel)
