@@ -27,6 +27,7 @@ from repro_torch.kernels._build import (
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.obs import trace
 from repro_torch.roofline import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -115,8 +116,10 @@ def conv_cuda(x, top, bot, weight):
 
 
 def conv2d_3x3(x, top, bot, kernel):
-    """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    with count.kernel(CONV2D_3X3.name, lambda: work(x, top, bot, kernel)):
+    """Plain twin for CPU tensors, the CUDA kernel otherwise, in the span
+    ``kernel.conv2d_3x3``."""
+    with count.kernel(CONV2D_3X3.name, lambda: work(x, top, bot, kernel)), \
+            trace.span("kernel.conv2d_3x3"):
         if x.device.type == "cpu":
             return conv_plain(x, top, bot, kernel)
         return conv_cuda(x, top, bot, kernel)

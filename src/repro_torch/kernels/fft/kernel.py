@@ -35,6 +35,7 @@ from repro_torch.kernels._build import (
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.obs import trace
 from repro_torch.roofline import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -147,8 +148,10 @@ def stage_cuda(x, stage, tw, reverse: bool = False):
 
 
 def fft_stage(x, stage, tw, reverse: bool = False):
-    """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    with count.kernel(FFT_STAGE.name, lambda: work(x, stage, tw)):
+    """Plain twin for CPU tensors, the CUDA kernel otherwise, in the span
+    ``kernel.fft_stage``."""
+    with count.kernel(FFT_STAGE.name, lambda: work(x, stage, tw)), \
+            trace.span("kernel.fft_stage"):
         if x.device.type == "cpu":
             return stage_plain(x, stage, tw, reverse)
         return stage_cuda(x, stage, tw, reverse)
@@ -200,8 +203,10 @@ def fft_full_cuda(x, tw):
 
 
 def fft_full(x, tw):
-    """Plain twin for CPU tensors, the CUDA kernel otherwise."""
-    with count.kernel(FFT_STAGE.name, lambda: full_work(x, tw)):
+    """Plain twin for CPU tensors, the CUDA kernel otherwise, in the span
+    ``kernel.fft_stage`` (the launch counts as ``fft_stage``'s)."""
+    with count.kernel(FFT_STAGE.name, lambda: full_work(x, tw)), \
+            trace.span("kernel.fft_stage"):
         if x.device.type == "cpu":
             return fft_full_plain(x, tw)
         return fft_full_cuda(x, tw)

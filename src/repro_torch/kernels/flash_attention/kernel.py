@@ -41,7 +41,6 @@ import ctypes
 import math
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.kernels._build import (
     Kernel,
@@ -49,6 +48,7 @@ from repro_torch.kernels._build import (
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.obs import trace
 from repro_torch.roofline import count
 
 NEG_INF = -1e30
@@ -473,10 +473,10 @@ def flash_carry_backward(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
                          m_new, l_new, acc_new, g_m, g_l, g_acc, *,
                          causal: bool, window: int = 0):
     """The backward twin for CPU tensors, the backward kernel otherwise,
-    under the profiler label ``flash_carry_backward``."""
+    in the span ``flash_carry_backward``."""
     with count.kernel(FLASH_CARRY_BWD.name,
                       lambda: backward_work(q, k, m, acc)), \
-            record_function("flash_carry_backward"):
+            trace.span("flash_carry_backward"):
         bwd = flash_carry_backward_plain if q.device.type == "cpu" \
             else flash_carry_backward_cuda
         return bwd(q, k, v, m, l, acc, q_off, k_off, klen, kv_row, m_new,
@@ -521,9 +521,10 @@ def flash_carry(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
                 causal: bool = True, window: int = 0,
                 normalize: bool = False, out_dtype=None):
     """Plain twin for CPU tensors, the CUDA kernel otherwise, through
-    ``_FlashCarry`` on both."""
+    ``_FlashCarry`` on both, in the span ``kernel.flash_carry``."""
     with count.kernel(FLASH_CARRY.name, lambda: work(
-            q, k, m, l, acc, normalize=normalize, out_dtype=out_dtype)):
+            q, k, m, l, acc, normalize=normalize, out_dtype=out_dtype)), \
+            trace.span("kernel.flash_carry"):
         return _FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen,
                                  kv_row, causal, window, normalize,
                                  out_dtype)

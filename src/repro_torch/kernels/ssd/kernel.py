@@ -35,7 +35,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.kernels._build import (
     Kernel,
@@ -43,6 +42,7 @@ from repro_torch.kernels._build import (
     require_cuda_tensors,
     stream_handle,
 )
+from repro_torch.obs import trace
 from repro_torch.roofline import count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -399,10 +399,10 @@ def ssd_chunks_backward_cuda(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
 def ssd_chunks_backward(x, dt, a, b, c, gy, gs, ge, *, nheads: int,
                         ngroups: int):
     """The backward twin for CPU tensors, the backward kernel otherwise,
-    under the profiler label ``ssd_chunks_backward``."""
+    in the span ``ssd_chunks_backward``."""
     with count.kernel(SSD_CHUNKS_BWD.name, lambda: backward_work(
             x, dt, a, b, c, nheads=nheads, ngroups=ngroups)), \
-            record_function("ssd_chunks_backward"):
+            trace.span("ssd_chunks_backward"):
         bwd = ssd_chunks_backward_plain if x.device.type == "cpu" \
             else ssd_chunks_backward_cuda
         return bwd(x, dt, a, b, c, gy, gs, ge, nheads=nheads,
@@ -429,7 +429,8 @@ class _SSDChunks(torch.autograd.Function):
 
 def ssd_chunks(x, dt, a, b, c, *, nheads: int, ngroups: int):
     """Plain twin for CPU tensors, the CUDA kernel otherwise, through
-    ``_SSDChunks`` on both."""
+    ``_SSDChunks`` on both, in the span ``kernel.ssd_chunks``."""
     with count.kernel(SSD_CHUNKS.name, lambda: work(
-            x, dt, a, b, c, nheads=nheads, ngroups=ngroups)):
+            x, dt, a, b, c, nheads=nheads, ngroups=ngroups)), \
+            trace.span("kernel.ssd_chunks"):
         return _SSDChunks.apply(x, dt, a, b, c, nheads, ngroups)

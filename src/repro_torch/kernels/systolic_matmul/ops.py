@@ -18,9 +18,9 @@ reference's jnp path does; any other value raises on every device.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.kernels.systolic_matmul import kernel
+from repro_torch.obs import trace
 from repro_torch.roofline import count
 
 
@@ -29,7 +29,7 @@ class _TileMatmul(torch.autograd.Function):
     plain form ``(c +) a.astype(out) @ b.astype(out)`` (``_mm_fused``'s
     custom VJP): both products in the output type (bf16 hops: bf16
     operands, fp32 accumulation), each gradient in its input's type. The
-    backward runs under the profiler label ``tile_matmul_backward``."""
+    backward runs in the span ``tile_matmul_backward``."""
 
     @staticmethod
     def forward(ctx, a, b, c, out_dtype, block=0):
@@ -43,7 +43,7 @@ class _TileMatmul(torch.autograd.Function):
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         dt = ctx.out_dtype
-        with record_function("tile_matmul_backward"):
+        with trace.span("tile_matmul_backward"):
             g = g.to(dt)
             ga = torch.matmul(g, b.to(dt).transpose(1, 2)).to(a.dtype)
             gb = torch.matmul(a.to(dt).transpose(1, 2), g).to(b.dtype)
@@ -81,7 +81,8 @@ def tile_matmul(x, w, acc=None, block: int = 0):
     w3 = w3.to(in_dtype)
     c3 = acc.reshape(p, m, n) if acc is not None else None
     with count.kernel(kernel.TILE_MATMUL.name,
-                      lambda: kernel.work(x3, w3, c3, out_dtype)):
+                      lambda: kernel.work(x3, w3, c3, out_dtype)), \
+            trace.span("kernel.tile_matmul"):
         if x.device.type == "cpu":
             y = kernel.matmul_plain(x3, w3, c3, out_dtype)
         else:

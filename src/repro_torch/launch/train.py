@@ -25,7 +25,8 @@ reference.
 Observability: --metrics-out FILE.json snapshots the run's registry
 (steps/tokens counters, loss/lr gauges, step-time histogram) as JSON plus
 a FILE.prom Prometheus twin; --trace-out FILE.json writes a Chrome trace
-of the step phases (data / step / checkpoint) for Perfetto.
+of the step phases (data / step / checkpoint) and of the port's spans
+inside the last 64 steps (``obs/trace.py``) for Perfetto.
 """
 from __future__ import annotations
 
@@ -123,7 +124,7 @@ def main(argv=None):
     tokens_per_step = args.batch * args.seq
 
     registry = obs_metrics.Registry()
-    tracer = Tracer() if args.trace_out else NullTracer()
+    tracer = Tracer().arm() if args.trace_out else NullTracer()
     step_hist = registry.histogram("repro_train_step_seconds",
                                    "train step wall time")
 
@@ -176,6 +177,7 @@ def main(argv=None):
         registry.dump_prometheus(prom)
         print(f"wrote {args.metrics_out}\nwrote {prom}")
     if args.trace_out:
+        tracer.disarm()
         tracer.dump(args.trace_out)
         print(f"wrote {args.trace_out}")
     print(f"done: {args.steps} steps; watchdog {timer.summary()}")

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs import trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -144,11 +145,17 @@ def embed(params, tokens, cfg: ModelConfig):
     return F.embedding(tokens.long(), params["table"]).to(adtype(cfg))
 
 
-def lm_logits(head_params, embed_params, x, cfg: ModelConfig):
-    """Final projection to vocab (tied or untied). Returns fp32 logits."""
+def _logits(head_params, embed_params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return torch.matmul(x.float(), embed_params["table"].float().t())
     return torch.matmul(x.float(), head_params["w"].float())
+
+
+def lm_logits(head_params, embed_params, x, cfg: ModelConfig):
+    """Final projection to vocab (tied or untied), the span
+    ``model.head``. Returns fp32 logits."""
+    with trace.span("model.head"):
+        return _logits(head_params, embed_params, x, cfg)
 
 
 def init_lm_head(gen, cfg: ModelConfig):
@@ -179,11 +186,19 @@ def lm_loss_chunked(head_params, embed_params, x, targets, cfg: ModelConfig,
     to (sum of masked ce, sum of mask) and recomputed in the backward pass
     (``torch.utils.checkpoint``), so peak memory is O(B * chunk * V)
     instead of O(B * S * V). A ragged tail is padded with masked-out
-    positions, as in the reference.
+    positions, as in the reference. The forward is the span
+    ``model.head``.
     """
+    with trace.span("model.head"):
+        return _loss_chunked(head_params, embed_params, x, targets, cfg,
+                             mask, chunk, z_loss)
+
+
+def _loss_chunked(head_params, embed_params, x, targets, cfg, mask, chunk,
+                  z_loss):
     b, s, _ = x.shape
     if s <= chunk:
-        logits = lm_logits(head_params, embed_params, x, cfg)
+        logits = _logits(head_params, embed_params, x, cfg)
         return softmax_cross_entropy(logits, targets, mask, z_loss)
     nch = -(-s // chunk)
     pad = nch * chunk - s
@@ -196,7 +211,7 @@ def lm_loss_chunked(head_params, embed_params, x, targets, cfg: ModelConfig,
         mask_full = F.pad(mask_full, (0, pad))
 
     def chunk_loss(xs, ts, ms):
-        logits = lm_logits(head_params, embed_params, xs, cfg)
+        logits = _logits(head_params, embed_params, xs, cfg)
         ce = _ce(logits, ts, z_loss)
         return torch.sum(ce * ms), torch.sum(ms)
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.common import adtype, param, pdtype
+from repro_torch.obs import trace
 
 GATED_NORM_EPS = 1e-6
 
@@ -75,12 +76,18 @@ def _split_xbc(xbc, cfg: ModelConfig):
 
 
 def _gated_norm_out(params, y, z, cfg: ModelConfig):
-    """Gated RMSNorm (the gate inside the norm), then the out projection."""
+    """Gated RMSNorm (the gate inside the norm), then the out projection:
+    the spans ``mamba2.gated_norm`` (up to the cast) and
+    ``mamba2.out_proj``."""
     dt_ = adtype(cfg)
-    yf = y.float() * F.silu(z.float())
-    var = yf.square().mean(dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(var + GATED_NORM_EPS) * params["norm_scale"].float()
-    return torch.matmul(yf.to(dt_), params["w_out"].to(dt_))
+    with trace.span("mamba2.gated_norm"):
+        yf = y.float() * F.silu(z.float())
+        var = yf.square().mean(dim=-1, keepdim=True)
+        yf = yf * torch.rsqrt(var + GATED_NORM_EPS) \
+            * params["norm_scale"].float()
+        yf = yf.to(dt_)
+    with trace.span("mamba2.out_proj"):
+        return torch.matmul(yf, params["w_out"].to(dt_))
 
 
 def ssd_chunked(x, dt, A, B, C, D, cfg: ModelConfig, assoc_scan: bool = False,
@@ -97,22 +104,28 @@ def ssd_chunked(x, dt, A, B, C, D, cfg: ModelConfig, assoc_scan: bool = False,
 
 
 def mamba2_forward(params, x, cfg: ModelConfig):
-    """Full-sequence Mamba2 layer. x: [B,S,D] -> [B,S,D]."""
+    """Full-sequence Mamba2 layer. x: [B,S,D] -> [B,S,D]. The spans
+    ``mamba2.in_proj``, ``mamba2.conv`` and ``mamba2.ssd`` mark the input
+    product, the causal conv and the SSD scan."""
     dt_ = adtype(cfg)
     bsz, s, _ = x.shape
     d_inner, nheads, _ = ssm_dims(cfg)
     g, n = cfg.ssm_ngroups, cfg.ssm_state
 
-    zxbcdt = torch.matmul(x.to(dt_), params["w_in"].to(dt_))
+    with trace.span("mamba2.in_proj"):
+        zxbcdt = torch.matmul(x.to(dt_), params["w_in"].to(dt_))
     z, xc, b, c, dtp = _split_in_proj(zxbcdt, cfg)
-    xbc = _causal_conv(torch.cat([xc, b, c], dim=-1),
-                       params["conv_w"].to(dt_), params["conv_b"].to(dt_))
+    with trace.span("mamba2.conv"):
+        xbc = _causal_conv(torch.cat([xc, b, c], dim=-1),
+                           params["conv_w"].to(dt_),
+                           params["conv_b"].to(dt_))
     xc, b, c = _split_xbc(xbc, cfg)
     xh = xc.reshape(bsz, s, nheads, cfg.ssm_headdim)
     dt = F.softplus(dtp.float() + params["dt_bias"][None, None])
     A = -torch.exp(params["A_log"].float())
-    y = ssd_chunked(xh, dt, A, b.reshape(bsz, s, g, n),
-                    c.reshape(bsz, s, g, n), params["D"].float(), cfg)
+    with trace.span("mamba2.ssd"):
+        y = ssd_chunked(xh, dt, A, b.reshape(bsz, s, g, n),
+                        c.reshape(bsz, s, g, n), params["D"].float(), cfg)
     y = y.reshape(bsz, s, d_inner).to(dt_)
     return _gated_norm_out(params, y, z, cfg)
 

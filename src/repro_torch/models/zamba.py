@@ -60,6 +60,7 @@ from repro_torch.models.common import (
     resolve_device,
 )
 from repro_torch.models.transformer import remat
+from repro_torch.obs import trace
 
 
 def _stacked(one: dict, *lead: int) -> dict:
@@ -84,9 +85,11 @@ def init_mamba_block(gen, cfg: ModelConfig):
 
 
 def mamba_block(lp, x, cfg: ModelConfig):
-    """One pre-norm Mamba2 block over a full sequence."""
-    return x + ssm.mamba2_forward(lp["mixer"], apply_norm(lp["norm"], x, cfg),
-                                  cfg)
+    """One pre-norm Mamba2 block over a full sequence (the span
+    ``mamba2.block``, opened again by remat's recompute)."""
+    with trace.span("mamba2.block"):
+        return x + ssm.mamba2_forward(lp["mixer"],
+                                      apply_norm(lp["norm"], x, cfg), cfg)
 
 
 def _mamba_step(lp, x, cache, cfg: ModelConfig, active):

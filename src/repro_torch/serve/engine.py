@@ -167,14 +167,19 @@ class ServeEngine:
 
         If ``max_ticks`` is exhausted with work still in flight, the
         leftover requests are marked terminally ``failed`` and
-        :class:`TicksExhaustedError` is raised."""
+        :class:`TicksExhaustedError` is raised. The engine's tracer is
+        armed meanwhile (the port's program spans record into it)."""
         ticks = 0
         t0 = time.perf_counter()
         tok0 = self.metrics.counter("repro_tokens_total").value
-        while self.sched.busy and ticks < max_ticks:
-            self._admit()
-            self.step()
-            ticks += 1
+        self.tracer.arm()
+        try:
+            while self.sched.busy and ticks < max_ticks:
+                self._admit()
+                self.step()
+                ticks += 1
+        finally:
+            self.tracer.disarm()
         elapsed = time.perf_counter() - t0
         done_toks = self.metrics.counter("repro_tokens_total").value - tok0
         self.metrics.gauge(

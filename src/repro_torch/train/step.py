@@ -32,6 +32,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.kernels._build import fake_mode_active
 from repro_torch.models import build_model, input_specs
+from repro_torch.obs import trace
 from repro_torch.roofline import count
 from repro_torch.train import optimizer as opt
 
@@ -50,9 +51,11 @@ def value_and_grad(model, params, batch):
     diff = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(diff)
     with torch.enable_grad():
-        loss, metrics = model.loss(opt.tree_map(lambda _: next(it), params),
-                                   batch)
-        got = torch.autograd.grad(loss, diff, allow_unused=True)
+        with trace.span("train.forward"):
+            loss, metrics = model.loss(
+                opt.tree_map(lambda _: next(it), params), batch)
+        with trace.span(trace.BACKWARD):
+            got = torch.autograd.grad(loss, diff, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(p)
               for g, p in zip(got, diff))
     grads = opt.tree_map(lambda _: next(it), params)
@@ -69,17 +72,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     model = build_model(cfg, n_pe=n_pe)
 
     def train_step(state, batch):
-        params = state["params"]
-        if tcfg.microbatches > 1:
-            grads, (loss, metrics) = _accumulated_grads(model, params,
-                                                        batch, tcfg)
-        else:
-            loss, metrics, grads = value_and_grad(model, params, batch)
-        grads = opt.compress_gradients(grads, tcfg.grad_compression)
-        grads = opt.decompress_gradients(grads)
-        grads, gnorm = opt.clip_by_global_norm(grads, tcfg.grad_clip)
-        new_params, new_opt, lr = opt.adamw_update(grads, state["opt"],
-                                                   params, tcfg)
+        with trace.span("train.step"):
+            params = state["params"]
+            if tcfg.microbatches > 1:
+                grads, (loss, metrics) = _accumulated_grads(model, params,
+                                                            batch, tcfg)
+            else:
+                loss, metrics, grads = value_and_grad(model, params, batch)
+            with trace.span("train.optimizer"):
+                grads = opt.compress_gradients(grads, tcfg.grad_compression)
+                grads = opt.decompress_gradients(grads)
+                grads, gnorm = opt.clip_by_global_norm(grads, tcfg.grad_clip)
+                new_params, new_opt, lr = opt.adamw_update(
+                    grads, state["opt"], params, tcfg)
         out_metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                        **metrics}
         return {"params": new_params, "opt": new_opt}, out_metrics
@@ -126,12 +131,13 @@ def make_prefill_step(cfg: ModelConfig, n_pe: int = 0) -> Callable:
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        if cfg.family == "encdec":
-            return model.prefill(params, batch)
-        if cfg.family == "vlm":
-            return model.prefill(params, batch["tokens"],
-                                 batch.get("patch_embeds"))
-        return model.prefill(params, batch["tokens"])
+        with trace.span("prefill.step"):
+            if cfg.family == "encdec":
+                return model.prefill(params, batch)
+            if cfg.family == "vlm":
+                return model.prefill(params, batch["tokens"],
+                                     batch.get("patch_embeds"))
+            return model.prefill(params, batch["tokens"])
 
     return prefill_step
 

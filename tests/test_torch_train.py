@@ -597,6 +597,11 @@ def test_launcher_writes_metrics_and_resumes(tmp_path, capsys):
     spans = {e["name"] for e in json.loads(
         (tmp_path / "t.json").read_text())["traceEvents"]}
     assert {"data", "step", "checkpoint"} <= spans
+    # the armed tracer took the port's spans in, and is disarmed
+    assert {"train.step", "train.forward", "train.backward",
+            "train.optimizer", "kernel.tile_matmul"} <= spans
+    from repro_torch.obs import trace
+    assert trace._armed == 0
     logged = [json.loads(line) for line in
               (tmp_path / "log.jsonl").read_text().splitlines()]
     assert [r["step"] for r in logged] == [0, 2]
