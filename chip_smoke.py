@@ -35,7 +35,11 @@ non-zero before the result lines are printed:
    names the kernel body the profiler saw, and a bf16 hop with more than
    one query at head_dim 64 or 128 fails unless it ran the tensor-core
    body of its width (the backward: the prep pass, both passes' tensor-
-   core bodies and, where pass B splits, the sum of its partials);
+   core bodies and, where pass B splits, the sum of its partials); the
+   Mamba2 causal conv pair at mamba2-1.3b's prefill and training shapes
+   through the layer's strided view (``CAUSAL_CONV_SHAPES``): the forward
+   bit for bit against its twin, the backward against the float64 closed
+   form, each timed at every row tile beside ``F.conv1d``;
 3. serving: ``ServeEngine`` over ``RingShardedBackend(n_pe=4, mode="qlr")``,
    whose ring hops run the kernels, qwen3-0.6b at full width in bf16 with
    random weights from a seed, 8 requests plus 4 admitted mid-run; every kernel's
@@ -1223,6 +1227,169 @@ def check_conv(torch, ck, dev):
             out.append(rec)
             del x, top, bot, got, want, lib, image
     return out
+
+
+# the Mamba2 conv: (B, S, C, input projection width, offset of the conv
+# columns), the layer's strided view of its input projection; "generic": a
+# ragged width at an odd offset (the generic body), fp32
+CAUSAL_CONV_SHAPES = {"prefill_bf16": ((4, 2048, 4352, 8512, 4096), "bf16"),
+                      "train_bf16": ((8, 2048, 4352, 8512, 4096), "bf16"),
+                      "prefill_fp32": ((4, 2048, 4352, 8512, 4096), "fp32"),
+                      "generic_bf16": ((4, 2048, 4350, 8512, 4097), "bf16")}
+
+
+def causal_conv_inputs(torch, g, dev, case):
+    """x (the strided view), w, bias and a cotangent of an
+    ``CAUSAL_CONV_SHAPES`` case, from the generator ``g``."""
+    (b, s, c, width, offset), kind = CAUSAL_CONV_SHAPES[case]
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    zxbcdt = torch.randn(b, s, width, generator=g, device=dev).to(dtype)
+    w = (torch.randn(4, c, generator=g, device=dev) * 0.5).to(dtype)
+    bias = (torch.randn(c, generator=g, device=dev) * 0.1).to(dtype)
+    up = torch.randn(b, s, c, generator=g, device=dev).to(dtype)
+    return zxbcdt[..., offset:offset + c], w, bias, up
+
+
+def conv1d_call(torch, x, w, bias):
+    """One PyTorch call computing the same depthwise causal conv with its
+    bias (no SiLU), from the channels-first copy of x it needs (made
+    here, outside the timed call), as a yardstick."""
+    import torch.nn.functional as F
+    k, c = w.shape
+    xt = x.transpose(1, 2).contiguous()
+    wt = w.t().contiguous()[:, None, :]
+    s = x.shape[1]
+    return lambda: F.conv1d(xt, wt, bias, padding=k - 1, groups=c)[..., :s]
+
+
+def check_causal_conv(torch, cc, dev):
+    """The Mamba2 conv's kernel pair at ``CAUSAL_CONV_SHAPES``: the forward
+    bit for bit against its twin on the card, the backward against the
+    float64 closed form (fp32 1e-4, bf16 2e-2 of max(1, the largest)),
+    two backward calls bit-identical. Timed beside each bound, the twin
+    (and what the card ran before: the twin on a contiguous copy of the
+    conv columns, its autograd for the backward) and ``F.conv1d`` (cuDNN,
+    without the SiLU; its backward by autograd), and the forward at each
+    row tile. Returns (forward records, backward records)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    fwd_ptx = ptxas_summary(cc.CAUSAL_CONV.ptxas_log)
+    bwd_ptx = ptxas_summary(cc.CAUSAL_CONV_BWD.ptxas_log)
+    fwd_out, bwd_out = [], []
+    for case, (_, kind) in CAUSAL_CONV_SHAPES.items():
+        x, w, bias, up = causal_conv_inputs(torch, g, dev, case)
+        b, s, c = x.shape
+        addresses = [t.data_ptr() for t in (x, w, bias)]
+        vector = cc.conv_vector(x.shape, x.stride(), x.element_size(),
+                                addresses)
+        per = c * x.element_size() // cc.VEC_BYTES if vector else c
+        tile = cc.row_tile(b, s, per, cc.resident(cc.CAUSAL_CONV, x, 4,
+                                                  vector))
+        before = cc.CAUSAL_CONV.launches
+        got = cc.causal_conv_cuda(x, w, bias)
+        want = cc.causal_conv_plain(x, w, bias)
+        lib_call = conv1d_call(torch, x, w, bias)
+        lib = lib_call().transpose(1, 2)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        pre = cc.conv_pre(x, w, bias).float()
+        lib_err = float((lib.float() - pre).abs().max())
+        lib_tol = (1e-4 if kind == "fp32" else 5e-2) * max(
+            1.0, float(pre.abs().max()))
+        del pre, lib
+        flops, moved, b_kind = cc.work(x, w, bias)
+        b_ms, b_by = bound(moved, flops, b_kind)
+        body = f"causal_conv_kernel<{kind}, 4, {8 if vector else 1}>"
+        rec = {"case": case, "max_abs_err": err, "bit_for_bit": same,
+               "library_err": lib_err, "library_tol": lib_tol,
+               "ok": same and lib_err <= lib_tol
+               and cc.CAUSAL_CONV.launches == before + 1,
+               "body": body, "vector": vector, "tile": tile,
+               "ptxas": [info for func, info in fwd_ptx],
+               "ms": time_ms(lambda: cc.causal_conv_cuda(x, w, bias),
+                             only="causal_conv_kernel"),
+               "tile_ms": {t: time_ms(lambda t=t: cc.causal_conv_cuda(
+                   x, w, bias, tile=t), only="causal_conv_kernel")
+                   for t in cc.TILES},
+               "plain_ms": time_ms(lambda: cc.causal_conv_plain(x, w, bias),
+                                   iters=5),
+               "old_path_ms": time_ms(lambda: cc.causal_conv_plain(
+                   x.contiguous(), w, bias), iters=5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": time_ms(lib_call, iters=10),
+               "copy_ms": time_ms(lambda: x.contiguous(), iters=10),
+               "shape": {"x": [b, s, c], "stride": list(x.stride()),
+                         "dtype": str(x.dtype)}}
+        log(f"[kernels] causal_conv {case}: vector {vector}, tile {tile}, "
+            f"bit for bit {same} (max err {err:.3e}), F.conv1d err "
+            f"{lib_err:.3e} (tol {lib_tol:.3e}): kernel {rec['ms']:.4f} ms "
+            f"(tiles {rec['tile_ms']}), twin {rec['plain_ms']:.4f} ms, the "
+            f"twin on a copy (before) {rec['old_path_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), F.conv1d {rec['library_ms']:.4f} ms, "
+            f"copy of the columns {rec['copy_ms']:.4f} ms" + ratio_text(rec))
+        fwd_out.append(rec)
+        del got, want
+
+        call = lambda: cc.causal_conv_backward_cuda(  # noqa: E731
+            x, w, bias, up)
+        before = cc.CAUSAL_CONV_BWD.launches
+        got, again = call(), call()
+        launched = cc.CAUSAL_CONV_BWD.launches - before
+        want = cc.causal_conv_backward_plain(
+            x.double(), w.double(), bias.double(), up.double())
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        tol = 1e-4 if kind == "fp32" else 2e-2
+        errs = [float((u.double() - v).abs().max())
+                / max(1.0, float(v.abs().max())) for u, v in zip(got, want)]
+        del got, again, want
+        flops, moved, b_kind = cc.backward_work(x, w, bias)
+        b_ms, b_by = bound(moved, flops, b_kind)
+
+        def twin_autograd(xx=x.contiguous()):
+            leaves = [t.detach().requires_grad_(True) for t in (xx, w, bias)]
+            return torch.autograd.grad(cc.causal_conv_plain(*leaves), leaves,
+                                       up)
+
+        def lib_backward(xt=x.transpose(1, 2).contiguous(),
+                         wt=w.t().contiguous()[:, None, :]):
+            import torch.nn.functional as F
+            leaves = [t.detach().requires_grad_(True) for t in (xt, wt, bias)]
+            y = F.conv1d(*leaves[:2], leaves[2], padding=3, groups=c)
+            return torch.autograd.grad(y, leaves, torch.ones_like(y))
+        brec = {"case": case, "max_abs_err": max(errs), "rel_errors": errs,
+                "tol": tol, "bit_identical": same,
+                "ok": same and launched == 2 and max(errs) <= tol,
+                "body": f"causal_conv_bwd_kernel<{kind}, 4, "
+                        f"{4 if vector else 1}>",
+                "ptxas": [info for func, info in bwd_ptx],
+                "ms": time_ms(call, iters=10, only="causal_conv_bwd"),
+                "passes_ms": split_ms(call, "causal_conv_bwd"),
+                "tile_ms": {t: time_ms(
+                    lambda t=t: cc.causal_conv_backward_cuda(
+                        x, w, bias, up, tile=t),
+                    iters=10, only="causal_conv_bwd")
+                    for t in cc.TILES},
+                "plain_ms": time_ms(lambda: cc.causal_conv_backward_plain(
+                    x, w, bias, up), iters=3),
+                "twin_backward_ms": time_ms(twin_autograd, iters=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib_backward, iters=5)}
+        log(f"[kernels] causal_conv_bwd {case}: errors (dx, dw, dbias) "
+            f"{[f'{e:.3e}' for e in errs]} (tol {tol}), bit-identical "
+            f"{same}: kernel {brec['ms']:.4f} ms (passes "
+            f"{brec['passes_ms']}; tiles {brec['tile_ms']}), closed-form "
+            f"twin {brec['plain_ms']:.4f} "
+            f"ms, the twin's autograd (before) "
+            f"{brec['twin_backward_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), F.conv1d backward {brec['library_ms']:.4f} ms"
+            + ratio_text(brec))
+        bwd_out.append(brec)
+        del x, w, bias, up
+        torch.cuda.empty_cache()
+    for func, info in fwd_ptx + bwd_ptx:
+        log(f"[kernels] causal_conv ptxas {func}: {info}")
+    return fwd_out, bwd_out
 
 
 def check_fft(torch, ffk, fft, dev):
@@ -4565,7 +4732,8 @@ def example_topologies(torch, kernels, dev):
             summary[section]["identical"] = recs["identical"]
             assert recs["identical"], f"{section}: modes differ"
     for k in kernels:           # no Mamba2 layer, no backward here
-        if k.name not in ("ssd_chunks", "ssd_chunks_bwd", "flash_carry_bwd"):
+        if k.name not in ("ssd_chunks", "ssd_chunks_bwd", "flash_carry_bwd",
+                          "causal_conv", "causal_conv_bwd"):
             assert launched[k.name] > 0, f"{k.name} never launched"
     summary["launches"] = launched
     log(f"[examples] systolic_topologies: {json.dumps(summary)}")
@@ -4679,6 +4847,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
     from repro_torch.core import fft
+    from repro_torch.kernels.causal_conv import kernel as cck
     from repro_torch.kernels.conv2d import kernel as ck
     from repro_torch.kernels.fft import kernel as ffk
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -4712,6 +4881,7 @@ def main() -> int:
     # the profiler loses launches (time_ms then falls back to events)
     blocks = block_knob(torch, mk, dev)
     conv = check_conv(torch, ck, dev)
+    cconv, cconv_bwd = check_causal_conv(torch, cck, dev)
     ffts = check_fft(torch, ffk, fft, dev)
     ssds = check_ssd(torch, sk, dev)
     ssd_bwd = check_ssd_backward(torch, sk, dev)
@@ -4722,7 +4892,7 @@ def main() -> int:
                     "ms", "passes_ms", "bound_ms", "bound_by",
                     "max_abs_err", "plain_ms", "twin_backward_ms")}
     bad = [r["case"] for r in flash + flash_bwd + mm + blocks + conv + ffts
-           + ssds + ssd_bwd if not r["ok"]]
+           + ssds + ssd_bwd + cconv + cconv_bwd if not r["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their twins: {bad}")
 
@@ -4930,6 +5100,13 @@ def main() -> int:
               "src/repro/kernels/conv2d/kernel.py:50", conv, "card_fp32"),
         entry(ffk.FFT_STAGE, "src/repro_torch/csrc/fft_stage.cu",
               "src/repro/kernels/fft/kernel.py:58", ffts, "fft256_B4096"),
+        # no Pallas kernel: the reference's conv is plain jnp
+        entry(cck.CAUSAL_CONV, "src/repro_torch/csrc/causal_conv.cu",
+              "none: src/repro/models/ssm.py:61 (jnp)", cconv,
+              "prefill_bf16"),
+        entry(cck.CAUSAL_CONV_BWD, "src/repro_torch/csrc/causal_conv_bwd.cu",
+              "none: jnp autodiff of src/repro/models/ssm.py:61", cconv_bwd,
+              "train_bf16"),
     ], "serve": served, "dsp": dsp, "mamba_prefill": prefill,
         "mamba_parity": parity, "mamba_serve": mserve, "train": train,
         "train_parity": tparity, "serve_launcher": launcher,

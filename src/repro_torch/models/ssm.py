@@ -17,6 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.causal_conv.kernel import (  # noqa: F401
+    causal_conv,
+    causal_conv_plain as _causal_conv,   # the reference's _causal_conv
+)
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.common import adtype, param, pdtype
 from repro_torch.obs import trace
@@ -56,17 +60,6 @@ def _split_in_proj(zxbcdt, cfg: ModelConfig):
     return torch.split(zxbcdt, [d_inner, d_inner, gn, gn,
                                 zxbcdt.shape[-1] - 2 * d_inner - 2 * gn],
                        dim=-1)
-
-
-def _causal_conv(x, w, bias):
-    """Depthwise causal conv1d. x: [B,S,C]; w: [K,C] -> silu(conv(x))."""
-    k, s = w.shape[0], x.shape[1]
-    y = torch.zeros_like(x)
-    for i in range(k):
-        shift = k - 1 - i
-        xs = F.pad(x, (0, 0, shift, 0))[:, :s]
-        y = y + xs * w[i][None, None, :]
-    return F.silu(y + bias[None, None, :])
 
 
 def _split_xbc(xbc, cfg: ModelConfig):
@@ -109,16 +102,17 @@ def mamba2_forward(params, x, cfg: ModelConfig):
     product, the causal conv and the SSD scan."""
     dt_ = adtype(cfg)
     bsz, s, _ = x.shape
-    d_inner, nheads, _ = ssm_dims(cfg)
+    d_inner, nheads, conv_dim = ssm_dims(cfg)
     g, n = cfg.ssm_ngroups, cfg.ssm_state
 
     with trace.span("mamba2.in_proj"):
         zxbcdt = torch.matmul(x.to(dt_), params["w_in"].to(dt_))
-    z, xc, b, c, dtp = _split_in_proj(zxbcdt, cfg)
+    # x, B and C are adjacent columns of zxbcdt: the conv reads them in
+    # place, as one strided view
+    z, xbc, dtp = torch.split(zxbcdt, [d_inner, conv_dim, nheads], dim=-1)
     with trace.span("mamba2.conv"):
-        xbc = _causal_conv(torch.cat([xc, b, c], dim=-1),
-                           params["conv_w"].to(dt_),
-                           params["conv_b"].to(dt_))
+        xbc = causal_conv(xbc, params["conv_w"].to(dt_),
+                          params["conv_b"].to(dt_))
     xc, b, c = _split_xbc(xbc, cfg)
     xh = xc.reshape(bsz, s, nheads, cfg.ssm_headdim)
     dt = F.softplus(dtp.float() + params["dt_bias"][None, None])

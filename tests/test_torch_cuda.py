@@ -29,6 +29,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.kernels.causal_conv import kernel as cck
 from repro_torch.kernels.conv2d import kernel as ck
 from repro_torch.kernels.fft import kernel as ffk
 from repro_torch.kernels.flash_attention import kernel as fk
@@ -605,9 +606,10 @@ def test_cuda_ssd_chunks_backward_refuses_wide_state(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_mamba2_forward_grads_vs_cpu(cuda, dtype):
     """Gradients of a Mamba2 layer (SMOKE zamba2 widths, chunk 8, two
-    chunks) on the card (the forward and backward kernels, one launch
-    each) against the same call on the CPU (the twins throughout), at
-    ``tests/test_torch_ssm.py``'s bounds: fp32 1e-4, bf16 2e-2."""
+    chunks) on the card (the SSD and causal conv kernels forward and
+    backward, one launch each) against the same call on the CPU (the twins
+    throughout), at ``tests/test_torch_ssm.py``'s bounds: fp32 1e-4, bf16
+    2e-2."""
     from dataclasses import replace
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import ssm
@@ -631,10 +633,11 @@ def test_cuda_mamba2_forward_grads_vs_cpu(cuda, dtype):
                                   up.to(y.device, y.dtype))
         return [g.cpu().float() for g in got]
 
-    before = sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches
+    kernels = (sk.SSD_CHUNKS, sk.SSD_CHUNKS_BWD, cck.CAUSAL_CONV,
+               cck.CAUSAL_CONV_BWD)
+    before = [k.launches for k in kernels]
     got = grads(_to_device(params, cuda), x.to(cuda))
-    assert (sk.SSD_CHUNKS.launches, sk.SSD_CHUNKS_BWD.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert [k.launches for k in kernels] == [n + 1 for n in before]
     want = grads(params, x)
     tol = 1e-4 if dtype == "float32" else 2e-2
     for name, a, b in zip(["x", *params], got, want):

@@ -21,6 +21,7 @@ from test_torch_reference import ref, smoke_fp32  # noqa: F401 (fixture)
 
 from repro_torch import configs
 from repro_torch.configs import ShapeConfig, TrainConfig
+from repro_torch.kernels.causal_conv import kernel as cck
 from repro_torch.kernels.conv2d import kernel as ck
 from repro_torch.kernels.fft import kernel as ffk
 from repro_torch.kernels.flash_attention import kernel as fk
@@ -33,7 +34,8 @@ from repro_torch.train import step as step_lib
 
 ARCHS = configs.ARCHS
 KERNELS = (mk.TILE_MATMUL, fk.FLASH_CARRY, fk.FLASH_CARRY_BWD, sk.SSD_CHUNKS,
-           sk.SSD_CHUNKS_BWD, ck.CONV2D_3X3, ffk.FFT_STAGE)
+           sk.SSD_CHUNKS_BWD, ck.CONV2D_3X3, ffk.FFT_STAGE, cck.CAUSAL_CONV,
+           cck.CAUSAL_CONV_BWD)
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +348,16 @@ PERF_ROWS = {
                          _meta(256, 1, 8192, dtype=BF),
                          _meta(256, 1, 8192, dtype=BF), _meta(3, 3, dtype=BF)),
          (0.0826, "bytes"))],
+    # mamba2-1.3b's conv: the prefill forward, the training backward
+    "causal_conv": [
+        (lambda: cck.work(_meta(4, 2048, 4352, dtype=BF),
+                          _meta(4, 4352, dtype=BF), _meta(4352, dtype=BF)),
+         (0.0426, "bytes"))],
+    "causal_conv_bwd": [
+        (lambda: cck.backward_work(_meta(8, 2048, 4352, dtype=BF),
+                                   _meta(4, 4352, dtype=BF),
+                                   _meta(4352, dtype=BF)),
+         (0.1277, "bytes"))],
     "fft_stage": [
         (lambda: ffk.full_work(_meta(4096, 256, dtype=torch.complex64),
                                _meta(4, 256, dtype=torch.complex64)),
@@ -413,6 +425,16 @@ def _wrapper_calls(dev, fake_mode=None):
              (2, 2, 16, 8)]),
         "conv2d_3x3": (lambda: ck.conv_cuda(t(4, 3, 16), None, None,
                                             t(3, 3)), [(4, 3, 16)]),
+        # x as a strided view of wider rows (the layer's input projection)
+        "causal_conv": (lambda: cck.causal_conv_cuda(
+            torch.empty_strided((2, 5, 16), (120, 24, 1), dtype=BF,
+                                device=dev), t(4, 16, dtype=BF),
+            t(16, dtype=BF)), [(2, 5, 16)]),
+        "causal_conv_bwd": (lambda: cck.causal_conv_backward_cuda(
+            torch.empty_strided((2, 5, 16), (120, 24, 1), dtype=BF,
+                                device=dev), t(4, 16, dtype=BF),
+            t(16, dtype=BF), t(2, 5, 16, dtype=BF)),
+            [(2, 5, 16), (4, 16), (16,)]),
         "fft_stage": (lambda: ffk.stage_cuda(t(2, 3, 16, dtype=c64),
                                              t(2, dtype=i32),
                                              t(2, 16, dtype=c64)),
