@@ -271,6 +271,7 @@ MOE_BATCH, MOE_SEQ = 2, 8192       # phase 11: mixtral prefill, 2 x 8192
 MOE_LAYERS = 4                     # of 56, at full width
 MOE_WINDOW = 4096                  # mixtral's sliding window
 ZAMBA_BATCH, ZAMBA_SEQ = 4, 2048   # phase 12: zamba2 prefill and training
+ZAMBA7_BATCH, ZAMBA7_SEQ = 8, 2048  # phase 2: the zamba2-7b.train cell's hop
 ZAMBA_SERVE_SEQ = 64               # phase 12 (d): zamba2's serving slots
 ZAMBA_WINDOW = 768                 # phase 2: a window at zamba2's hop
 GRANITE_BATCH = 2                  # phase 12 (g): granite 2 x 2048 prefill
@@ -674,6 +675,22 @@ def flash_cases(torch, fk, dev):
             args=(qh_, kh_, vh_, *state(rows, s_l, fresh=True, h=qh, d=d),
                   0 * pe_h, 0 * pe_h, big_h, None),
             opts=dict(causal=True, window=0, normalize=True, out_dtype=bf))
+    # hop 1 of the zamba2-7b training cell's ring attention (8 x 2048 on
+    # the ring of 4: 32 rows, 512 queries and keys, 32 heads, MHA) at
+    # head_dim 224 with its scale 1/sqrt(224 / 2): the forward's
+    # tensor-core body with q from shared memory, the backward's CUDA-core
+    # body
+    rows7, s_l7 = N_PE * ZAMBA7_BATCH, ZAMBA7_SEQ // N_PE
+    pe7 = torch.arange(N_PE, device=dev).repeat_interleave(ZAMBA7_BATCH)
+    q7, k7, v7 = (torch.randn(rows7, s_l7, 32, 224, generator=g,
+                              device=dev).to(bf) for _ in range(3))
+    m7, l7, acc7 = state(rows7, s_l7, fresh=False, h=32, d=224)
+    m7[::3] = -1e30
+    cases["zamba7b_train_hop"] = dict(
+        args=(q7, k7, v7, m7, l7, acc7, pe7 * s_l7, (pe7 - 1) % N_PE * s_l7,
+              torch.tensor(2 ** 30, device=dev).expand(rows7), None),
+        opts=dict(causal=True, window=0, normalize=False,
+                  scale=(224 / 2) ** -0.5))
     # ring decode hops at head_dim 64, fp32 queries against the bf16 cache
     # (the key-split body): zamba2's serving run of phase 12 (d) (8 slots of
     # 64 on the ring of 4: q [8,1,32,64], the cache [8,64,32,64] viewed as
@@ -801,7 +818,7 @@ def check_flash(torch, fk, dev, cases):
         q, k = args[0], args[1]
         d = q.shape[-1]
         if q.dtype == k.dtype == torch.bfloat16 and q.shape[1] > 1 \
-                and d in (64, 128):
+                and d in (64, 128, 224):
             # the tensor-core body, and no other, at its widths; a hop whose
             # body no profiler session recorded fails too
             ok = ok and body is not None \
@@ -811,8 +828,8 @@ def check_flash(torch, fk, dev, cases):
                "body": body, "ms": time_ms(launch, only="flash_carry_kernel"),
                "plain_ms": time_ms(lambda: fk.flash_carry_plain(*args,
                                                                  **opts),
-                                   iters=3 if name.startswith("moe")
-                                   else 20),
+                                   iters=3 if name.startswith(
+                                       ("moe", "zamba7b")) else 20),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                "shape": {"q": list(args[0].shape), "k": list(args[1].shape),
                          "dtype_q": str(args[0].dtype),
@@ -827,10 +844,12 @@ def check_flash(torch, fk, dev, cases):
 
 
 # phase 2's backward cases: the training hops of phases 9, 11 (c), 12 (c)
-# and 13 (flash_cases' names), and qwen3's hop from zero state (the
-# normalized case's inputs, the causal diagonal of the ring's hop 0)
+# and 13 (flash_cases' names), qwen3's hop from zero state (the
+# normalized case's inputs, the causal diagonal of the ring's hop 0) and
+# the zamba2-7b.train cell's head_dim-224 hop
 BWD_CASES = ("train_hop", "zamba_prefill_hop", "vlm_prefill_hop",
-             "whisper_prefill_hop", "moe_train_hop", "train_zero_state")
+             "whisper_prefill_hop", "moe_train_hop", "train_zero_state",
+             "zamba7b_train_hop")
 
 
 def twin_backward(torch, fk, args, ups, opts):
@@ -892,7 +911,8 @@ def bwd_case(torch, fk, cases, name, g):
     kernel's outputs and random cotangents from ``g``."""
     src = "train_normalized" if name == "train_zero_state" else name
     args = cases[src]["args"]
-    opts = {k: cases[src]["opts"][k] for k in ("causal", "window")}
+    opts = {k: v for k, v in cases[src]["opts"].items()
+            if k in ("causal", "window", "scale")}
     outs = fk.flash_carry_cuda(*args, **opts)
     ups = [torch.randn(o.shape, generator=g, device=o.device) for o in outs]
     return args, opts, outs, ups

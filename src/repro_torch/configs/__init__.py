@@ -1,5 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``get_smoke_config(arch)``,
-and the dry run's grid: ``get_shape(name)`` / ``iter_cells()``."""
+and the dry run's grid: ``get_shape(name)`` / ``iter_cells()``. ``ARCHS``
+is the reference's registry; the port's own configurations
+(``PORT_ARCHS``: zamba2-7b) are found by name too but stay out of the
+dry run's grid, which is held against the reference's."""
 from __future__ import annotations
 
 from repro_torch.configs import (
@@ -13,6 +16,7 @@ from repro_torch.configs import (
     qwen3_14b,
     whisper_tiny,
     zamba2_1p2b,
+    zamba2_7b,
 )
 from repro_torch.configs.base import (
     SHAPES,
@@ -25,9 +29,9 @@ from repro_torch.configs.base import (
     shape_applicable,
 )
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ServeConfig", "ShapeConfig",
-           "TrainConfig", "apply_overrides", "config_summary", "get_config",
-           "get_shape", "get_smoke_config", "iter_cells",
+__all__ = ["ARCHS", "PORT_ARCHS", "SHAPES", "ModelConfig", "ServeConfig",
+           "ShapeConfig", "TrainConfig", "apply_overrides", "config_summary",
+           "get_config", "get_shape", "get_smoke_config", "iter_cells",
            "shape_applicable"]
 
 _MODULES = {          # the reference registry's order
@@ -44,18 +48,24 @@ _MODULES = {          # the reference registry's order
 }
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)
+_PORT_MODULES = {"zamba2-7b": zamba2_7b}
+PORT_ARCHS: tuple[str, ...] = tuple(_PORT_MODULES)
+
+
+def _module(arch: str):
+    mod = _MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if mod is None:
+        raise KeyError(f"unknown arch {arch!r}; available: "
+                       f"{', '.join(ARCHS + PORT_ARCHS)}")
+    return mod
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; available: {', '.join(ARCHS)}")
-    return _MODULES[arch].CONFIG
+    return _module(arch).CONFIG
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; available: {', '.join(ARCHS)}")
-    return _MODULES[arch].SMOKE
+    return _module(arch).SMOKE
 
 
 def get_shape(name: str) -> ShapeConfig:

@@ -4,8 +4,9 @@ The fields the ported slices read (dense serving and training, Mamba2,
 MoE with MLA, the Zamba2 hybrid, the Whisper encoder-decoder and the
 InternVL2 patch projector), with the reference's names and defaults
 (``repro/configs/base.py``), so a configuration reads the same in both
-packages; the reference's parameter counts, shape grid
-(``ShapeConfig``, ``SHAPES``, ``shape_applicable``) and
+packages, and the port's own fields of the published Zamba2 layer (the
+``zamba2`` family, which the reference lacks); the reference's parameter
+counts, shape grid (``ShapeConfig``, ``SHAPES``, ``shape_applicable``) and
 ``config_summary`` for the dry run. Its ``MeshConfig`` has no
 counterpart: the port runs on one card, and its records name the card.
 """
@@ -13,6 +14,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Any
+
+
+# The port's own fields (the published Zamba2 layer), which the
+# reference's ModelConfig lacks: every reference configuration holds their
+# defaults.
+PORT_FIELDS = ("hybrid_layer_ids", "num_mem_blocks", "adapter_rank",
+               "attn_scale_frac", "gated_norm_eps")
 
 
 @dataclass(frozen=True)
@@ -76,6 +84,16 @@ class ModelConfig:
     attn_every: int = 0            # shared attn block every N mamba layers
     n_shared_attn: int = 0         # number of shared-block invocations
 
+    # published Zamba2 (the zamba2 family; port only): the layers listed
+    # (those below num_layers) first call one of num_mem_blocks shared
+    # blocks, in turn, each call with its own gate/up adapter of this rank
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 0
+    adapter_rank: int = 0
+    attn_scale_frac: float = 1.0   # softmax scale 1/sqrt(head_dim * this)
+    # the Mamba2 gated RMSNorm's eps (its groups are the ssm_ngroups)
+    gated_norm_eps: float = 1e-6
+
     # encoder-decoder (Whisper)
     enc_layers: int = 0
     enc_frames: int = 1500         # stubbed conv frontend output length
@@ -110,6 +128,11 @@ class ModelConfig:
 
     # activation recomputation of each block in the training backward
     remat: str = "full"            # none | full | selective
+
+    def __post_init__(self):
+        # a configuration file's list, held as a tuple (hashable, frozen)
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
 
     @property
     def resolved_head_dim(self) -> int:
@@ -179,6 +202,14 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         total += cfg.num_layers * ssm_params()
         total += attn_params() + mlp_params(cfg.d_ff)        # one shared block
         total += cfg.n_shared_attn * 2 * d * d // 8          # adapters
+    elif cfg.family == "zamba2":
+        calls = sum(i < cfg.num_layers for i in cfg.hybrid_layer_ids)
+        qkv = 2 * d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd  # 2d wide
+        total += cfg.num_layers * ssm_params()
+        total += cfg.num_mem_blocks * (qkv + cfg.num_heads * hd * d
+                                       + 3 * d * cfg.d_ff)   # shared blocks
+        total += calls * (cfg.adapter_rank * (d + 2 * cfg.d_ff)
+                          + d * d)                           # adapters, linear
     elif cfg.family == "moe":
         n_moe = cfg.num_layers - cfg.first_k_dense
         ff_e = cfg.d_ff_expert or cfg.d_ff

@@ -42,7 +42,7 @@ MODES = ("baseline",) + queues.MODES
 
 def ring_attention(q_local, k_local, v_local, topo,
                    mode: str = "qlr", *, causal: bool = True,
-                   window: int = 0):
+                   window: int = 0, scale=None):
     """Systolic attention over one ring, every PE at once.
 
     q_local:         [n, B, sq, H, hd] — each PE's resident query shard
@@ -51,6 +51,7 @@ def ring_attention(q_local, k_local, v_local, topo,
                      around the ring; at hop t PE d holds the shard of
                      origin ``source_table[d, t]``. ``topo`` is a
                      single-cycle Topology or a GridSchedule.
+    scale:           the scores' scale (None: 1/sqrt(hd)).
 
     Returns [n, B, sq, H, hd] fp32 — each PE's output for its query shard.
     """
@@ -72,7 +73,7 @@ def ring_attention(q_local, k_local, v_local, topo,
         kv_rows = torch.arange(b, device=dev).repeat(n)     # PE d, row i -> i
         m, l, acc = flash_ops.flash_hop(
             q_rows, ks, vs, state0, q_offset=q_off, k_offset=0,
-            causal=causal, window=window, kv_rows=kv_rows)
+            causal=causal, window=window, kv_rows=kv_rows, scale=scale)
     else:
         src_table = _source_table(topo, dev)
 
@@ -84,7 +85,7 @@ def ring_attention(q_local, k_local, v_local, topo,
             k_off = (src_table[:, t] * s_local).repeat_interleave(b)
             return flash_ops.flash_hop(
                 q_rows, k_rows, v_rows, state, q_offset=q_off,
-                k_offset=k_off, causal=causal, window=window)
+                k_offset=k_off, causal=causal, window=window, scale=scale)
 
         # K and V ride two queues of the same link, hopping in lockstep;
         # the reference's one stacked element is what telemetry counts
@@ -108,7 +109,7 @@ def ring_attn_applicable(q, k, n_pe: int) -> bool:
 
 def systolic_ring_attention(q, k, v, n_pe: int, mode: str = "qlr", *,
                             causal: bool = True, window: int = 0,
-                            topo=None):
+                            topo=None, scale=None):
     """Ring attention over ``n_pe`` emulated PEs: sequence sharded, heads
     whole. q: [B,S,H,hd], k/v: [B,S,Kv,hd]. Returns [B,S,H,hd] fp32.
     ``topo`` overrides the +1 ring with any schedule of ``n_pe`` PEs, a
@@ -122,7 +123,7 @@ def systolic_ring_attention(q, k, v, n_pe: int, mode: str = "qlr", *,
         return x.reshape(b, n_pe, s // n_pe, *x.shape[2:]).transpose(0, 1)
 
     out = ring_attention(shards(q), shards(k), shards(v), topo, mode,
-                         causal=causal, window=window)
+                         causal=causal, window=window, scale=scale)
     n, b, sq = out.shape[:3]
     return out.transpose(0, 1).reshape(b, n * sq, *out.shape[3:])
 

@@ -36,8 +36,8 @@
 // byte: bound by the bytes of the live cache slots (< 1 us), in practice by
 // the latency of reading them. Two bodies, chosen by dtype, Sq and D:
 //
-// * bf16 q and K/V with Sq > 1 and D = 64 or 128 (prefill and training
-//   hops): tensor cores. One block of four warps per (row b', KV head, 64
+// * bf16 q and K/V with Sq > 1 and D = 64, 128 or 224 (prefill and
+//   training hops): tensor cores. One block of four warps per (row b', KV head, 64
 //   flattened query rows), so each K/V tile is read once per 64 rows; each
 //   warp owns 16 rows. Q K^T and P V run on
 //   mma.sync.m16n8k16 (bf16 operands, fp32 accumulation); K/V tiles of 64
@@ -63,6 +63,10 @@
 //   Two 16-row groups a warp (128 rows a block, each K/V fragment feeding
 //   both) and a third cp.async stage were tried at D = 64: 255 registers
 //   with spills, and no faster.
+//   At D = 224 (Zamba2's shared attention) acc alone takes 112 registers a
+//   lane, so q is not held as A fragments for the sweep: the block's 64
+//   query rows wait in shared memory (padded rows, 29 KB beside the two
+//   K/V stages' 116 KB) and each k step reads its fragment by ldmatrix.
 // * everything else: Sq = 1, any fp32 operand, other D (decode, fp32
 //   paths, small test models): fp32 FMAs on the CUDA cores, the key range
 //   split across the block's warps so that all of a block's K/V loads are
@@ -92,7 +96,7 @@
 
 namespace {
 
-constexpr int DMAX = 128;     // head_dim limit
+constexpr int DMAX = 224;     // head_dim limit (the CUDA-core body's instances: 128, 224)
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -194,7 +198,9 @@ template <int D>
 struct TcTile {
   static constexpr int ROW = D + 8;                  // padded row, bf16 elements
   static constexpr int TILE = TC_KEYS * ROW;         // one K or V tile
-  static constexpr int SMEM = 2 * 2 * TILE * 2;      // 2 stages x (K, V), bytes
+  static constexpr bool Q_SMEM = D > 128;            // q read from shared memory
+  static constexpr int SMEM =                        // 2 stages x (K, V) (+ q), bytes
+      2 * 2 * TILE * 2 + (Q_SMEM ? TC_ROWS * ROW * 2 : 0);
 };
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
@@ -290,15 +296,31 @@ flash_carry_kernel_mma(const Args a) {
   position_range(r0, nr, Sq, s_min, s_max);
   const int qpos_min = qo + s_min, qpos_max = qo + s_max;
 
-  // Q as mma A fragments: qf[kk] = {(row0, k), (row8, k), (row0, k+8), (row8, k+8)}
-  uint32_t qf[D / 16][4];
+  // Q as mma A fragments: qf[kk] = {(row0, k), (row8, k), (row0, k+8), (row8, k+8)};
+  // at D > 128 the block's rows as bf16 pairs in q_s (zeros past the block),
+  // read by ldmatrix at each k step (visible after the first tile's barrier)
+  __nv_bfloat16* q_s = kv_s + 4 * Tile::TILE;
+  uint32_t qf[Tile::Q_SMEM ? 1 : D / 16][4];
+  if constexpr (Tile::Q_SMEM) {
+    constexpr int PAIRS = D / 2;
+    for (int idx = tid; idx < TC_ROWS * PAIRS; idx += TC_THREADS) {
+      const int r = idx / PAIRS, c = (idx % PAIRS) * 2, rr = r0 + r;
+      uint32_t val = 0u;
+      if (rr < rows) {
+        const int g = rr / Sq, s = rr % Sq, h = kvh * G + g;
+        val = *reinterpret_cast<const uint32_t*>(q + b * a.q_sb + s * a.q_ss + h * a.q_sh + c);
+      }
+      *reinterpret_cast<uint32_t*>(q_s + r * Tile::ROW + c) = val;
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + (lane & 3) * 2;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + (lane & 3) * 2;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      qf[kk][e] = rv[e] ? *reinterpret_cast<const uint32_t*>(qrow[e] + c) : 0u;
-      qf[kk][2 + e] = rv[e] ? *reinterpret_cast<const uint32_t*>(qrow[e] + c + 8) : 0u;
+      for (int e = 0; e < 2; ++e) {
+        qf[kk][e] = rv[e] ? *reinterpret_cast<const uint32_t*>(qrow[e] + c) : 0u;
+        qf[kk][2 + e] = rv[e] ? *reinterpret_cast<const uint32_t*>(qrow[e] + c + 8) : 0u;
+      }
     }
   }
 
@@ -363,14 +385,22 @@ flash_carry_kernel_mma(const Args a) {
     for (int j = 0; j < TC_KEYS / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Tile::Q_SMEM) {
+        ldmatrix_x4(qa, smem_u32(q_s + (warp * 16 + (lane & 15)) * Tile::ROW + kk * 16 +
+                                 (lane >> 4) * 8));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      }
 #pragma unroll
       for (int jj = 0; jj < TC_KEYS / 16; ++jj) {
         uint32_t bk[4];
         const int key = jj * 16 + (lane & 7) + (lane >> 4) * 8;
         const int d = kk * 16 + ((lane >> 3) & 1) * 8;
         ldmatrix_x4(bk, smem_u32(ks + key * Tile::ROW + d));
-        mma_bf16(sc[2 * jj], qf[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * jj + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(sc[2 * jj], qa, bk[0], bk[1]);
+        mma_bf16(sc[2 * jj + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -512,15 +542,17 @@ flash_carry_kernel_mma(const Args a) {
 constexpr int SC_RB = 8;      // flattened query rows per block
 constexpr int SC_KEYS = 32;   // keys per warp tile (one per lane)
 
-template <typename TKV>
+// DM: the instance's head_dim limit, 128 or 224 (half the warps at 224, so
+// that the K/V tiles fit in shared memory)
+template <typename TKV, int DM>
 struct ScCfg {
-  static constexpr int WARPS = sizeof(TKV) == 2 ? 8 : 4;
+  static constexpr int WARPS = (sizeof(TKV) == 2 ? 8 : 4) / (DM > 128 ? 2 : 1);
   static constexpr int THREADS = WARPS * 32;
-  static constexpr int ROW = DMAX + 16 / sizeof(TKV);    // padded key row, elements
+  static constexpr int ROW = DM + 16 / sizeof(TKV);      // padded key row, elements
   static constexpr int TILE = SC_KEYS * ROW;              // one K or V tile
   static constexpr int KV_BYTES = WARPS * 2 * TILE * sizeof(TKV);
-  static constexpr int MERGE_BYTES = WARPS * SC_RB * (DMAX + 2) * 4;
-  static constexpr int Q_BYTES = SC_RB * DMAX * 4;
+  static constexpr int MERGE_BYTES = WARPS * SC_RB * (DM + 2) * 4;
+  static constexpr int Q_BYTES = SC_RB * DM * 4;
   static constexpr int SMEM =
       Q_BYTES + (KV_BYTES > MERGE_BYTES ? KV_BYTES : MERGE_BYTES);
 };
@@ -536,13 +568,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename TQ, typename TKV, typename TO>
-__global__ void __launch_bounds__(ScCfg<TKV>::THREADS)
+template <typename TQ, typename TKV, typename TO, int DM>
+__global__ void __launch_bounds__(ScCfg<TKV, DM>::THREADS)
 flash_carry_kernel_simt(const Args a) {
-  using Cfg = ScCfg<TKV>;
-  constexpr int W = Cfg::WARPS, VN = 16 / sizeof(TKV), DC = DMAX / 32;
+  using Cfg = ScCfg<TKV, DM>;
+  constexpr int W = Cfg::WARPS, VN = 16 / sizeof(TKV), DC = DM / 32;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);                  // [RB][DMAX]
+  float* Qs = reinterpret_cast<float*>(smem_raw);                  // [RB][DM]
   uint8_t* region = smem_raw + Cfg::Q_BYTES;                       // K/V, then merge
   const TQ* q = static_cast<const TQ*>(a.q);
   const TKV* k = static_cast<const TKV*>(a.k);
@@ -554,8 +586,8 @@ flash_carry_kernel_simt(const Args a) {
   const int qo = a.q_off[b], ko = a.k_off[b], kl = a.klen[b];
   const long long kv_base = (long long)a.kv_row[b] * a.kv_sb + (long long)kvh * a.kv_sh;
 
-  for (int idx = tid; idx < SC_RB * DMAX; idx += Cfg::THREADS) {
-    const int r = idx / DMAX, d = idx % DMAX;
+  for (int idx = tid; idx < SC_RB * DM; idx += Cfg::THREADS) {
+    const int r = idx / DM, d = idx % DM;
     float val = 0.f;
     if (r < nr && d < D) {
       const int rr = r0 + r, g = rr / Sq, s = rr % Sq, h = kvh * G + g;
@@ -617,7 +649,7 @@ flash_carry_kernel_simt(const Args a) {
         if (r < nr) {
 #pragma unroll
           for (int e = 0; e < VN; e += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * DMAX + c + e]);
+            const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * DM + c + e]);
             dot[r] = fmaf(qv.x, kf[e], dot[r]);
             dot[r] = fmaf(qv.y, kf[e + 1], dot[r]);
             dot[r] = fmaf(qv.z, kf[e + 2], dot[r]);
@@ -661,13 +693,13 @@ flash_carry_kernel_simt(const Args a) {
 
   // merge the warps' partials with the carried state
   __syncthreads();
-  float* macc = reinterpret_cast<float*>(region);      // [W][RB][DMAX]
-  float* m_s = macc + W * SC_RB * DMAX;                // [W][RB]
+  float* macc = reinterpret_cast<float*>(region);      // [W][RB][DM]
+  float* m_s = macc + W * SC_RB * DM;                  // [W][RB]
   float* l_s = m_s + W * SC_RB;
 #pragma unroll
   for (int r = 0; r < SC_RB; ++r) {
 #pragma unroll
-    for (int i = 0; i < DC; ++i) macc[(warp * SC_RB + r) * DMAX + lane + 32 * i] = acc_w[r][i];
+    for (int i = 0; i < DC; ++i) macc[(warp * SC_RB + r) * DM + lane + 32 * i] = acc_w[r][i];
     if (lane == 0) {
       m_s[warp * SC_RB + r] = m_w[r];
       l_s[warp * SC_RB + r] = l_w[r];
@@ -691,7 +723,7 @@ flash_carry_kernel_simt(const Args a) {
       if (mw == -INFINITY) continue;                  // the warp saw no key
       const float cw = expf(mw - m_new);
       l += l_s[w * SC_RB + r] * cw;
-      acc += macc[(w * SC_RB + r) * DMAX + d] * cw;
+      acc += macc[(w * SC_RB + r) * DM + d] * cw;
     }
     if (d == 0) {
       a.m_out[si] = m_new;
@@ -726,10 +758,10 @@ cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   return cudaSuccess;
 }
 
-template <typename TQ, typename TKV, typename TO>
+template <typename TQ, typename TKV, typename TO, int DM>
 cudaError_t launch_simt(const Args& a, cudaStream_t s) {
-  using Cfg = ScCfg<TKV>;
-  auto kern = flash_carry_kernel_simt<TQ, TKV, TO>;
+  using Cfg = ScCfg<TKV, DM>;
+  auto kern = flash_carry_kernel_simt<TQ, TKV, TO, DM>;
   static bool attr = false;
   const cudaError_t e = allow_smem(kern, Cfg::SMEM, attr);
   if (e != cudaSuccess) return e;
@@ -741,9 +773,12 @@ cudaError_t launch_simt(const Args& a, cudaStream_t s) {
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch_simt(const Args& a, int o_dtype, cudaStream_t s) {
+  const bool wide = a.D > 128;
   switch (o_dtype) {
-    case 0: return launch_simt<TQ, TKV, float>(a, s);
-    case 1: return launch_simt<TQ, TKV, __nv_bfloat16>(a, s);
+    case 0: return wide ? launch_simt<TQ, TKV, float, 224>(a, s)
+                        : launch_simt<TQ, TKV, float, 128>(a, s);
+    case 1: return wide ? launch_simt<TQ, TKV, __nv_bfloat16, 224>(a, s)
+                        : launch_simt<TQ, TKV, __nv_bfloat16, 128>(a, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -781,15 +816,17 @@ extern "C" int flash_carry(
                Kv, Sq, D, causal, window, normalize, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (q_dtype == 1 && kv_dtype == 1 && Sq > 1 && (D == 64 || D == 128)) {
+  if (q_dtype == 1 && kv_dtype == 1 && Sq > 1 && (D == 64 || D == 128 || D == 224)) {
     // the tensor-core body reads q as bf16 pairs and acc / o as 4-vectors
     if (q_sb % 2 || q_ss % 2 || q_sh % 2 || reinterpret_cast<uintptr_t>(q) % 4 ||
         reinterpret_cast<uintptr_t>(acc_in) % 16 || reinterpret_cast<uintptr_t>(o_out) % 16)
       return static_cast<int>(cudaErrorMisalignedAddress);
     if (D == 64)
       err = o_dtype == 0 ? launch_mma<64, float>(a, s) : launch_mma<64, __nv_bfloat16>(a, s);
-    else
+    else if (D == 128)
       err = o_dtype == 0 ? launch_mma<128, float>(a, s) : launch_mma<128, __nv_bfloat16>(a, s);
+    else
+      err = o_dtype == 0 ? launch_mma<224, float>(a, s) : launch_mma<224, __nv_bfloat16>(a, s);
   } else {
     err = q_dtype == 0 ? dispatch_kv<float>(a, kv_dtype, o_dtype, s)
                        : dispatch_kv<__nv_bfloat16>(a, kv_dtype, o_dtype, s);

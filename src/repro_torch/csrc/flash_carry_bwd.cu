@@ -91,12 +91,16 @@
 //   B still take about 0.10 and 0.08 ms of their ~0.17 at qwen3's hop. The
 //   blocks start in lock-step waves and wait for their first tiles; blocks
 //   of 128 rows or keys (half the L2 traffic, half the blocks) were slower.
-// * everything else (fp32 operands, other head dims up to 128, Sq = 1):
+// * everything else (fp32 operands, other head dims up to 224, Sq = 1):
 //   fp32 FMAs on the CUDA cores, pass A with the key range split across
 //   warps (a lane per key) and pass B with the query rows split across
 //   warps (a lane per query row); the warps' partials are summed in a
 //   fixed order in shared memory. Both compute a score as the same
-//   ascending chain of fmaf, so their tie tests agree.
+//   ascending chain of fmaf, so their tie tests agree. Head dims above 128
+//   (Zamba2's 224) take instances with room for 224 columns and half the
+//   warps where the full count would not fit in shared memory; the tensor-
+//   core body's wgmma accumulators (dK and dV, D/2 registers a lane each)
+//   do not fit at 224 without splitting D, which is left for later.
 //
 // dtype codes: 0 = float32, 1 = bfloat16.
 #include <cuda_runtime.h>
@@ -106,7 +110,7 @@
 
 namespace {
 
-constexpr int DMAX = 128;     // head_dim limit
+constexpr int DMAX = 224;     // head_dim limit (the CUDA-core body's instances: 128, 224)
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -1023,24 +1027,29 @@ __global__ void __launch_bounds__(SUM_THREADS) flash_carry_bwd_kernel_sum(const 
 constexpr int SC_RB = 8;      // pass A: flattened query rows per block
 constexpr int SC_KB = 8;      // pass B: keys per block
 constexpr int SC_WARPS = 4;
-constexpr int SC_THREADS = SC_WARPS * 32;
 constexpr int SC_KEYS = 32;   // pass A: keys per warp tile (one per lane)
-constexpr int QROW = DMAX + 1;  // pass B: padded fp32 row (a lane per row)
 
-template <typename TKV>
+// DM: the instance's head_dim limit, 128 or 224
+template <typename TKV, int DM>
 struct ScA {
-  static constexpr int ROW = DMAX + 16 / sizeof(TKV);      // padded key row
+  static constexpr int WARPS = DM > 128 && sizeof(TKV) == 4 ? SC_WARPS / 2 : SC_WARPS;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int ROW = DM + 16 / sizeof(TKV);        // padded key row
   static constexpr int TILE = SC_KEYS * ROW;
-  static constexpr int QG_BYTES = 2 * SC_RB * DMAX * 4;    // Qs, Gs (fp32)
-  static constexpr int KV_BYTES = SC_WARPS * 2 * TILE * sizeof(TKV);
-  static constexpr int MERGE_BYTES = SC_WARPS * SC_RB * (DMAX + 2) * 4;
+  static constexpr int QG_BYTES = 2 * SC_RB * DM * 4;      // Qs, Gs (fp32)
+  static constexpr int KV_BYTES = WARPS * 2 * TILE * sizeof(TKV);
+  static constexpr int MERGE_BYTES = WARPS * SC_RB * (DM + 2) * 4;
   static constexpr int SMEM =
       QG_BYTES + (KV_BYTES > MERGE_BYTES ? KV_BYTES : MERGE_BYTES);
 };
+template <int DM>
 struct ScB {
-  static constexpr int KV_BYTES = 2 * SC_KB * DMAX * 4;              // Ks, Vs (fp32)
-  static constexpr int QG_BYTES = SC_WARPS * 2 * 32 * QROW * 4;      // per warp Q, G
-  static constexpr int MERGE_BYTES = SC_WARPS * 2 * SC_KB * DMAX * 4;
+  static constexpr int WARPS = DM > 128 ? SC_WARPS / 2 : SC_WARPS;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int QROW = DM + 1;                             // padded fp32 row
+  static constexpr int KV_BYTES = 2 * SC_KB * DM * 4;             // Ks, Vs (fp32)
+  static constexpr int QG_BYTES = WARPS * 2 * 32 * QROW * 4;      // per warp Q, G
+  static constexpr int MERGE_BYTES = WARPS * 2 * SC_KB * DM * 4;
   static constexpr int SMEM =
       KV_BYTES + (QG_BYTES > MERGE_BYTES ? QG_BYTES : MERGE_BYTES);
 };
@@ -1053,14 +1062,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Pass A: dQ and the state gradients of 8 flattened query rows; the key
 // range is split across the warps, a lane per key of a 32-key tile.
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(SC_THREADS)
+template <typename TQ, typename TKV, int DM>
+__global__ void __launch_bounds__(ScA<TKV, DM>::THREADS)
 flash_carry_bwd_kernel_rows_simt(const Args a) {
-  using Cfg = ScA<TKV>;
-  constexpr int W = SC_WARPS, VN = 16 / sizeof(TKV), DC = DMAX / 32;
+  using Cfg = ScA<TKV, DM>;
+  constexpr int W = Cfg::WARPS, VN = 16 / sizeof(TKV), DC = DM / 32;
+  constexpr int SC_THREADS = Cfg::THREADS;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);                  // [RB][DMAX]
-  float* Gs = Qs + SC_RB * DMAX;                                   // [RB][DMAX]
+  float* Qs = reinterpret_cast<float*>(smem_raw);                  // [RB][DM]
+  float* Gs = Qs + SC_RB * DM;                                     // [RB][DM]
   uint8_t* region = smem_raw + Cfg::QG_BYTES;                      // K/V, then merge
   __shared__ float r_m[SC_RB], r_mn[SC_RB], r_gl[SC_RB], r_w[SC_RB], r_M[SC_RB];
   __shared__ float w_bm[W][SC_RB];
@@ -1079,8 +1089,8 @@ flash_carry_bwd_kernel_rows_simt(const Args a) {
     return ((size_t)b * a.H + kvh * G + g) * Sq + s;
   };
 
-  for (int idx = tid; idx < SC_RB * DMAX; idx += SC_THREADS) {
-    const int r = idx / DMAX, d = idx % DMAX;
+  for (int idx = tid; idx < SC_RB * DM; idx += SC_THREADS) {
+    const int r = idx / DM, d = idx % DM;
     float qv = 0.f, gv = 0.f;
     if (r < nr && d < D) {
       const int rr = r0 + r, g = rr / Sq, s = rr % Sq, h = kvh * G + g;
@@ -1108,7 +1118,7 @@ flash_carry_bwd_kernel_rows_simt(const Args a) {
     const float corr = expf(r_m[r] - r_mn[r]);
     float s1 = 0.f, s2 = 0.f;
     for (int d = lane; d < D; d += 32) {
-      const float gv = Gs[r * DMAX + d];
+      const float gv = Gs[r * DM + d];
       s1 = fmaf(gv, a.acc[base + d], s1);
       s2 = fmaf(gv, a.acc_new[base + d], s2);
       a.dacc[base + d] = gv * corr;
@@ -1171,8 +1181,8 @@ flash_carry_bwd_kernel_rows_simt(const Args a) {
         const float vf = sweep ? to_f(vrow[c]) : 0.f;
 #pragma unroll
         for (int r = 0; r < SC_RB; ++r) {
-          dot[r] = fmaf(Qs[r * DMAX + c], kf, dot[r]);
-          if (sweep) dpv[r] = fmaf(Gs[r * DMAX + c], vf, dpv[r]);
+          dot[r] = fmaf(Qs[r * DM + c], kf, dot[r]);
+          if (sweep) dpv[r] = fmaf(Gs[r * DM + c], vf, dpv[r]);
         }
       }
       const int key = t0 + lane;
@@ -1246,11 +1256,11 @@ flash_carry_bwd_kernel_rows_simt(const Args a) {
 
   // sum the warps' dQ partials in order
   __syncthreads();
-  float* macc = reinterpret_cast<float*>(region);       // [W][RB][DMAX]
+  float* macc = reinterpret_cast<float*>(region);       // [W][RB][DM]
 #pragma unroll
   for (int r = 0; r < SC_RB; ++r)
 #pragma unroll
-    for (int i = 0; i < DC; ++i) macc[(warp * SC_RB + r) * DMAX + lane + 32 * i] = dq[r][i];
+    for (int i = 0; i < DC; ++i) macc[(warp * SC_RB + r) * DM + lane + 32 * i] = dq[r][i];
   __syncthreads();
   TQ* out = static_cast<TQ*>(a.dq);
   for (int idx = tid; idx < nr * D; idx += SC_THREADS) {
@@ -1258,21 +1268,22 @@ flash_carry_bwd_kernel_rows_simt(const Args a) {
     const int rr = r0 + r, g = rr / Sq, s = rr % Sq, h = kvh * G + g;
     float sum = 0.f;
 #pragma unroll
-    for (int x = 0; x < W; ++x) sum += macc[(x * SC_RB + r) * DMAX + d];
+    for (int x = 0; x < W; ++x) sum += macc[(x * SC_RB + r) * DM + d];
     store1(out + (((size_t)b * Sq + s) * a.H + h) * D + d, sum * a.scale);
   }
 }
 
 // Pass B: dK and dV of 8 keys of one (K/V row, KV head); the warps split
 // the 32-row query tiles of the rows that read it, a lane per query row.
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(SC_THREADS)
+template <typename TQ, typename TKV, int DM>
+__global__ void __launch_bounds__(ScB<DM>::THREADS)
 flash_carry_bwd_kernel_keys_simt(const Args a) {
-  constexpr int W = SC_WARPS, DC = DMAX / 32;
+  constexpr int W = ScB<DM>::WARPS, DC = DM / 32, QROW = ScB<DM>::QROW;
+  constexpr int SC_THREADS = ScB<DM>::THREADS;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);                  // [KB][DMAX]
-  float* Vs = Ks + SC_KB * DMAX;
-  float* region = Vs + SC_KB * DMAX;                               // Q, G; then merge
+  float* Ks = reinterpret_cast<float*>(smem_raw);                  // [KB][DM]
+  float* Vs = Ks + SC_KB * DM;
+  float* region = Vs + SC_KB * DM;                                 // Q, G; then merge
   const TQ* q = static_cast<const TQ*>(a.q);
   const TKV* k = static_cast<const TKV*>(a.k);
   const TKV* v = static_cast<const TKV*>(a.v);
@@ -1283,8 +1294,8 @@ flash_carry_bwd_kernel_keys_simt(const Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long kv_base = (long long)kr * a.kv_sb + (long long)kvh * a.kv_sh;
 
-  for (int idx = tid; idx < SC_KB * DMAX; idx += SC_THREADS) {
-    const int j = idx / DMAX, d = idx % DMAX;
+  for (int idx = tid; idx < SC_KB * DM; idx += SC_THREADS) {
+    const int j = idx / DM, d = idx % DM;
     const bool ok = j < nk && d < D;
     const long long off = kv_base + (long long)(t0 + j) * a.kv_st + d;
     Ks[idx] = ok ? to_f(k[off]) : 0.f;
@@ -1332,8 +1343,8 @@ flash_carry_bwd_kernel_keys_simt(const Args a) {
       float dot = 0.f, dpv = 0.f;
       if (valid && j < nk) {
         for (int d = 0; d < D; ++d) {
-          dot = fmaf(Qt[lane * QROW + d], Ks[j * DMAX + d], dot);
-          dpv = fmaf(Gt[lane * QROW + d], Vs[j * DMAX + d], dpv);
+          dot = fmaf(Qt[lane * QROW + d], Ks[j * DM + d], dot);
+          dpv = fmaf(Gt[lane * QROW + d], Vs[j * DM + d], dpv);
         }
       }
       const int key = t0 + j;
@@ -1366,14 +1377,14 @@ flash_carry_bwd_kernel_keys_simt(const Args a) {
 
   // sum the warps' partials in order
   __syncthreads();
-  float* mk = region;                                     // [W][KB][DMAX]
-  float* mv = region + W * SC_KB * DMAX;
+  float* mk = region;                                     // [W][KB][DM]
+  float* mv = region + W * SC_KB * DM;
 #pragma unroll
   for (int j = 0; j < SC_KB; ++j)
 #pragma unroll
     for (int i = 0; i < DC; ++i) {
-      mk[(warp * SC_KB + j) * DMAX + lane + 32 * i] = dk[j][i];
-      mv[(warp * SC_KB + j) * DMAX + lane + 32 * i] = dv[j][i];
+      mk[(warp * SC_KB + j) * DM + lane + 32 * i] = dk[j][i];
+      mv[(warp * SC_KB + j) * DM + lane + 32 * i] = dv[j][i];
     }
   __syncthreads();
   TKV* dk_out = static_cast<TKV*>(a.dk);
@@ -1383,8 +1394,8 @@ flash_carry_bwd_kernel_keys_simt(const Args a) {
     float sk = 0.f, sv = 0.f;
 #pragma unroll
     for (int x = 0; x < W; ++x) {
-      sk += mk[(x * SC_KB + j) * DMAX + d];
-      sv += mv[(x * SC_KB + j) * DMAX + d];
+      sk += mk[(x * SC_KB + j) * DM + d];
+      sv += mv[(x * SC_KB + j) * DM + d];
     }
     const size_t o = (((size_t)kr * a.T + t0 + j) * a.Kv + kvh) * D + d;
     store1(dk_out + o, sk * a.scale);
@@ -1436,28 +1447,32 @@ cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   return cudaSuccess;
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, int DM>
 cudaError_t launch_simt(const Args& a, cudaStream_t s) {
+  using CA = ScA<TKV, DM>;
+  using CB = ScB<DM>;
   static bool attr_a = false, attr_b = false;
-  auto ka = flash_carry_bwd_kernel_rows_simt<TQ, TKV>;
-  auto kb = flash_carry_bwd_kernel_keys_simt<TQ, TKV>;
-  cudaError_t e = allow_smem(ka, ScA<TKV>::SMEM, attr_a);
+  auto ka = flash_carry_bwd_kernel_rows_simt<TQ, TKV, DM>;
+  auto kb = flash_carry_bwd_kernel_keys_simt<TQ, TKV, DM>;
+  cudaError_t e = allow_smem(ka, CA::SMEM, attr_a);
   if (e != cudaSuccess) return e;
-  e = allow_smem(kb, ScB::SMEM, attr_b);
+  e = allow_smem(kb, CB::SMEM, attr_b);
   if (e != cudaSuccess) return e;
   const int rows = (a.H / a.Kv) * a.Sq;
-  ka<<<dim3((rows + SC_RB - 1) / SC_RB, a.Kv, a.Bp), SC_THREADS, ScA<TKV>::SMEM, s>>>(a);
+  ka<<<dim3((rows + SC_RB - 1) / SC_RB, a.Kv, a.Bp), CA::THREADS, CA::SMEM, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.T == 0) return e;
-  kb<<<dim3((a.T + SC_KB - 1) / SC_KB, a.Kv, a.Bk), SC_THREADS, ScB::SMEM, s>>>(a);
+  kb<<<dim3((a.T + SC_KB - 1) / SC_KB, a.Kv, a.Bk), CB::THREADS, CB::SMEM, s>>>(a);
   return cudaSuccess;
 }
 
 template <typename TQ>
 cudaError_t dispatch_simt(const Args& a, int kv_dtype, cudaStream_t s) {
+  const bool wide = a.D > 128;
   switch (kv_dtype) {
-    case 0: return launch_simt<TQ, float>(a, s);
-    case 1: return launch_simt<TQ, __nv_bfloat16>(a, s);
+    case 0: return wide ? launch_simt<TQ, float, 224>(a, s) : launch_simt<TQ, float, 128>(a, s);
+    case 1: return wide ? launch_simt<TQ, __nv_bfloat16, 224>(a, s)
+                        : launch_simt<TQ, __nv_bfloat16, 128>(a, s);
   }
   return cudaErrorInvalidValue;
 }

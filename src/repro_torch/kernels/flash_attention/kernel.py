@@ -15,8 +15,10 @@ kernel (``csrc/flash_carry.cu``) and its plain PyTorch twin.
              reads row b), so the ring decode reads its resident cache
              shard in place
 
-Query head h pairs with KV head h // (H / Kv). Masked scores take the
-finite sentinel -1e30, as the reference does. With ``normalize`` the third
+Query head h pairs with KV head h // (H / Kv). Scores are q·k times
+``scale``, 1/sqrt(D) unless given (Zamba2's shared attention takes
+1/sqrt(D/2)). Masked scores take the finite sentinel -1e30, as the
+reference does. With ``normalize`` the third
 output is ``acc / max(l, 1e-30)`` in ``out_dtype`` instead of ``acc``.
 Tensors on the CPU take the plain twin; CUDA tensors launch the kernel or
 raise.
@@ -29,11 +31,13 @@ the kernels for CUDA tensors and the twins for CPU tensors, and each
 reports its launch to the roofline counter.
 
 The kernel has two bodies. bf16 q and K/V with more than one query at
-head_dim 64 or 128 (the ring prefill and training hops) take the
+head_dim 64, 128 or 224 (the ring prefill and training hops) take the
 tensor-core body (``mma.sync``; at head_dim 64 with an unmasked path for
-tiles every row sees and exp2 on the special-function unit); everything
-else (decode's single query, any fp32 operand, other head dims up to
-``HEAD_DIM_MAX``) takes the key-split CUDA-core body.
+tiles every row sees and exp2 on the special-function unit; at 224 with q
+read from shared memory); everything else (decode's single query, any
+fp32 operand, other head dims up to ``HEAD_DIM_MAX``) takes the key-split
+CUDA-core body. The backward's tensor-core body takes head_dim 64 and
+128; at 224 its CUDA-core body runs.
 """
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ from repro_torch.obs import trace
 from repro_torch.roofline import count
 
 NEG_INF = -1e30
-HEAD_DIM_MAX = 128
+HEAD_DIM_MAX = 224
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FLASH_CARRY = Kernel("flash_carry", {
@@ -203,9 +207,14 @@ def backward_blocks(q, k, nsplit: int) -> dict:
     return out
 
 
+def softmax_scale(d: int, scale=None) -> float:
+    """The scores' scale: ``scale``, or 1/sqrt(d) when it is None."""
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
 def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
                       *, causal: bool, window: int = 0,
-                      normalize: bool = False, out_dtype=None):
+                      normalize: bool = False, out_dtype=None, scale=None):
     """The kernel's function in plain PyTorch: one online-softmax merge
     over the whole block (equal to the kernel's per-tile merges)."""
     if kv_row is not None:
@@ -213,7 +222,7 @@ def flash_carry_plain(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
     bp, sq, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     q5 = q.float().reshape(bp, sq, kvh, g, d)
     s = torch.einsum("bskgd,btkd->bkgst", q5, k.float()) * scale
     s = s.reshape(bp, h, sq, t)
@@ -255,9 +264,9 @@ def _check_operands(name: str, q, k, v) -> int:
 
 def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
                      *, causal: bool, window: int = 0,
-                     normalize: bool = False, out_dtype=None):
+                     normalize: bool = False, out_dtype=None, scale=None):
     """One launch of the CUDA flash-carry kernel: the tensor-core body for
-    bf16 q and K/V with Sq > 1 at head_dim 64 or 128, the key-split
+    bf16 q and K/V with Sq > 1 at head_dim 64, 128 or 224, the key-split
     CUDA-core body otherwise (see the module docstring)."""
     require_cuda_tensors("flash_carry", q, k, v, m, l, acc, q_off, k_off,
                          klen, kv_row)
@@ -310,7 +319,7 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
         klen.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         m_o.data_ptr(), l_o.data_ptr(), o.data_ptr(), DTYPE_CODES[out_dtype],
         bp, h, kvh, sq, d, int(causal), int(window), int(normalize),
-        1.0 / math.sqrt(d), stream_handle(dev))
+        softmax_scale(d, scale), stream_handle(dev))
     FLASH_CARRY.check(err)
     FLASH_CARRY.launches += 1
     return m_o, l_o, o
@@ -318,7 +327,8 @@ def flash_carry_cuda(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None,
 
 def flash_carry_backward_plain(q, k, v, m, l, acc, q_off, k_off, klen,
                                kv_row, m_new, l_new, acc_new, g_m, g_l,
-                               g_acc, *, causal: bool, window: int = 0):
+                               g_acc, *, causal: bool, window: int = 0,
+                               scale=None):
     """The gradient of ``flash_carry_plain`` (``normalize=False``) in
     closed form: (dq, dk, dv, dm, dl, dacc) for the cotangents (g_m, g_l,
     g_acc) of its outputs (m_new, l_new, acc_new), a None cotangent
@@ -331,7 +341,7 @@ def flash_carry_backward_plain(q, k, v, m, l, acc, q_off, k_off, klen,
     bp, sq, h, d = q.shape
     t, kvh = kk.shape[1], kk.shape[2]
     g = h // kvh
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(d, scale)
     g_m = torch.zeros_like(m_new) if g_m is None else g_m.float()
     g_l = torch.zeros_like(l_new) if g_l is None else g_l.float()
     g_acc = torch.zeros_like(acc_new) if g_acc is None else g_acc.float()
@@ -370,14 +380,16 @@ def flash_carry_backward_plain(q, k, v, m, l, acc, q_off, k_off, klen,
 
 def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
                               kv_row, m_new, l_new, acc_new, g_m, g_l,
-                              g_acc, *, causal: bool, window: int = 0):
+                              g_acc, *, causal: bool, window: int = 0,
+                              scale=None):
     """One launch of the backward kernel: the tensor-core body for bf16 q
     and K/V with Sq > 1 at head_dim 64 or 128, the CUDA-core body
-    otherwise. Query rows are grouped by the K/V row they read (a stable
-    argsort), so pass B sums each K/V row's gradients over them in a fixed
-    order; where its blocks would not fill the card it splits each key
-    tile's items into ``backward_split`` shares (``backward_shares``),
-    whose fp32 partials the kernel sums in share order."""
+    otherwise (head_dim 224 included). Query rows are grouped by the K/V
+    row they read (a stable argsort), so pass B sums each K/V row's
+    gradients over them in a fixed order; where its blocks would not fill
+    the card it splits each key tile's items into ``backward_split``
+    shares (``backward_shares``), whose fp32 partials the kernel sums in
+    share order."""
     require_cuda_tensors("flash_carry_bwd", q, k, v, m, l, acc, q_off,
                          k_off, klen, kv_row, m_new, l_new, acc_new, g_m,
                          g_l, g_acc)
@@ -461,7 +473,7 @@ def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
         dv.data_ptr(), dm.data_ptr(), dl.data_ptr(), dacc.data_ptr(),
         tie_max.data_ptr(), tie_w.data_ptr(), g16.data_ptr(),
         flags.data_ptr(), bp, bk, h, kvh, sq, d, int(causal), int(window),
-        1.0 / math.sqrt(d), nsplit,
+        softmax_scale(d, scale), nsplit,
         None if shares is None else shares.data_ptr(),
         None if part is None else part.data_ptr(), stream_handle(dev))
     FLASH_CARRY_BWD.check(err)
@@ -471,7 +483,7 @@ def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
 
 def flash_carry_backward(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
                          m_new, l_new, acc_new, g_m, g_l, g_acc, *,
-                         causal: bool, window: int = 0):
+                         causal: bool, window: int = 0, scale=None):
     """The backward twin for CPU tensors, the backward kernel otherwise,
     in the span ``flash_carry_backward``."""
     with count.kernel(FLASH_CARRY_BWD.name,
@@ -481,7 +493,7 @@ def flash_carry_backward(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
             else flash_carry_backward_cuda
         return bwd(q, k, v, m, l, acc, q_off, k_off, klen, kv_row, m_new,
                    l_new, acc_new, g_m, g_l, g_acc, causal=causal,
-                   window=window)
+                   window=window, scale=scale)
 
 
 class _FlashCarry(torch.autograd.Function):
@@ -493,9 +505,9 @@ class _FlashCarry(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, m, l, acc, q_off, k_off, klen, kv_row, causal,
-                window, normalize, out_dtype):
+                window, normalize, out_dtype, scale=None):
         ctx.opts = dict(causal=causal, window=window, normalize=normalize,
-                        out_dtype=out_dtype)
+                        out_dtype=out_dtype, scale=scale)
         fwd = flash_carry_plain if q.device.type == "cpu" \
             else flash_carry_cuda
         outs = fwd(q, k, v, m, l, acc, q_off, k_off, klen, kv_row,
@@ -513,13 +525,14 @@ class _FlashCarry(torch.autograd.Function):
                 "flash_carry defines no gradient for normalize=True")
         got = flash_carry_backward(
             q, k, v, m, l, acc, q_off, k_off, klen, kv_row, *outs, *grads,
-            causal=ctx.opts["causal"], window=ctx.opts["window"])
-        return (*got, None, None, None, None, None, None, None, None)
+            causal=ctx.opts["causal"], window=ctx.opts["window"],
+            scale=ctx.opts["scale"])
+        return (*got, None, None, None, None, None, None, None, None, None)
 
 
 def flash_carry(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
                 causal: bool = True, window: int = 0,
-                normalize: bool = False, out_dtype=None):
+                normalize: bool = False, out_dtype=None, scale=None):
     """Plain twin for CPU tensors, the CUDA kernel otherwise, through
     ``_FlashCarry`` on both, in the span ``kernel.flash_carry``."""
     with count.kernel(FLASH_CARRY.name, lambda: work(
@@ -527,4 +540,4 @@ def flash_carry(q, k, v, m, l, acc, q_off, k_off, klen, kv_row=None, *,
             trace.span("kernel.flash_carry"):
         return _FlashCarry.apply(q, k, v, m, l, acc, q_off, k_off, klen,
                                  kv_row, causal, window, normalize,
-                                 out_dtype)
+                                 out_dtype, scale)

@@ -31,7 +31,8 @@ def zero_state(b: int, h: int, sq: int, hd: int, device):
 
 
 def flash_hop(q, k, v, state, *, q_offset=0, k_offset=0, k_len=None,
-              causal: bool = True, window: int = 0, kv_rows=None):
+              causal: bool = True, window: int = 0, kv_rows=None,
+              scale=None):
     """One ring hop as one fused kernel launch.
 
     q:      [B, Sq, H, hd] resident queries.
@@ -40,6 +41,7 @@ def flash_hop(q, k, v, state, *, q_offset=0, k_offset=0, k_len=None,
     state:  (m, l, acc) fp32, [B,H,Sq] / [B,H,Sq] / [B,H,Sq,hd].
     q_offset / k_offset: global position of query / key 0, scalar or [B].
     k_len:  None, scalar or [B]: a key at position p counts iff p < k_len.
+    scale:  the scores' scale (None: 1/sqrt(hd)).
 
     Returns the updated (m, l, acc); the caller normalizes after the last
     hop.
@@ -51,5 +53,5 @@ def flash_hop(q, k, v, state, *, q_offset=0, k_offset=0, k_len=None,
         q, k, v, m, l, acc, _per_row(q_offset, b, dev),
         _per_row(k_offset, b, dev),
         _per_row(KLEN_NONE if k_len is None else k_len, b, dev),
-        kv_rows, causal=causal, window=window)
+        kv_rows, causal=causal, window=window, scale=scale)
 

@@ -42,15 +42,18 @@ BLOCKED_ATTN_THRESHOLD = 2048
 KV_BLOCK = 512
 
 
-def init_gqa(gen, cfg: ModelConfig):
-    d = cfg.d_model
+def init_gqa(gen, cfg: ModelConfig, d_in: int | None = None):
+    """The projections of ``d_in``-wide inputs (``d_model`` unless given;
+    the published Zamba2 block reads state and embedding, 2 d_model) back
+    to ``d_model``."""
+    d = d_in or cfg.d_model
     hd = cfg.resolved_head_dim
     dt = pdtype(cfg)
     p = {
         "wq": param(gen, (d, cfg.num_heads, hd), dt),
         "wk": param(gen, (d, cfg.num_kv_heads, hd), dt),
         "wv": param(gen, (d, cfg.num_kv_heads, hd), dt),
-        "wo": param(gen, (cfg.num_heads, hd, d), dt),
+        "wo": param(gen, (cfg.num_heads, hd, cfg.d_model), dt),
     }
     if cfg.use_attn_bias:
         p["bq"] = param(gen, (cfg.num_heads, hd), dt, "zeros")
@@ -68,6 +71,16 @@ def _expand_kv(k, num_heads: int):
     if kvh == num_heads:
         return k
     return k.repeat_interleave(num_heads // kvh, dim=2)
+
+
+def attn_scale(cfg: ModelConfig):
+    """The configuration's softmax scale, 1/sqrt(head_dim *
+    ``attn_scale_frac``) (the published Zamba2: 1/sqrt(head_dim / 2));
+    None for 1/sqrt(head_dim), the kernels' and the plain paths'
+    default."""
+    if cfg.attn_scale_frac == 1.0:
+        return None
+    return (cfg.resolved_head_dim * cfg.attn_scale_frac) ** -0.5
 
 
 def ring_size(cfg: ModelConfig, n_pe: int) -> int:
@@ -126,13 +139,13 @@ def _qkv(params, x, cfg: ModelConfig, positions, n_pe: int = 0):
     return q, k, v
 
 
-def plain_attention(q, k, v, *, causal: bool, window: int = 0):
+def plain_attention(q, k, v, *, causal: bool, window: int = 0, scale=None):
     """Materialized-scores attention over aligned positions.
     q: [B,Sq,H,hd], k/v: [B,Skv,Kv,hd]. Returns fp32 [B,Sq,H,hd]."""
     b, sq, h, hd = q.shape
     k = _expand_kv(k, h)
     v = _expand_kv(v, h)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     scores = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
     dq = torch.arange(sq, device=q.device)[:, None]
     dk = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -145,7 +158,7 @@ def plain_attention(q, k, v, *, causal: bool, window: int = 0):
 
 
 def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
-                      kv_block: int = KV_BLOCK):
+                      kv_block: int = KV_BLOCK, scale=None):
     """Online-softmax attention streaming KV blocks (flash-style): the
     per-block merge of the ring schedule, in plain torch on every device
     (the dense path launches no kernel)."""
@@ -161,7 +174,7 @@ def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
         state = flash_carry_plain(
             q, k[:, start:start + kv_block], v[:, start:start + kv_block],
             *state, zero, zero + start, zero + skv, causal=causal,
-            window=window)
+            window=window, scale=scale)
     _, l, acc = state
     out = acc / torch.clamp(l, min=1e-30)[..., None]          # [B,H,Sq,hd]
     return out.transpose(1, 2)
@@ -177,22 +190,23 @@ def gqa_forward(params, x, cfg: ModelConfig, positions=None,
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, x, cfg, positions, n_pe)
     n = ring_size(cfg, n_pe)
+    scale = attn_scale(cfg)
     out = None
     from repro_torch.core import ring_attention as ra
     if n and ra.ring_attn_applicable(q, k, n):
         # q shards stay resident, K/V blocks ride the ring
         out = ra.systolic_ring_attention(
             q, k, v, n, cfg.systolic_mode, causal=True,
-            window=cfg.sliding_window, topo=_sched(cfg, n))
+            window=cfg.sliding_window, topo=_sched(cfg, n), scale=scale)
         used_ring = True
     else:
         used_ring = False
         if s >= BLOCKED_ATTN_THRESHOLD:
             out = blocked_attention(q, k, v, causal=True,
-                                    window=cfg.sliding_window)
+                                    window=cfg.sliding_window, scale=scale)
         else:
             out = plain_attention(q, k, v, causal=True,
-                                  window=cfg.sliding_window)
+                                  window=cfg.sliding_window, scale=scale)
     out = out.to(dt)
     # after ring attention the output is already sequence-sharded and the
     # out-projection is local to each shard; otherwise a reduce-scatter

@@ -1,7 +1,7 @@
 """Common model substrate: dtypes, parameter init from a
 ``torch.Generator``, the norms (RMS, LayerNorm, non-parametric LayerNorm),
 rotary and sinusoidal positions, embedding, tied LM logits, the chunked
-cross-entropy loss and the SwiGLU and GELU MLPs. Mirrors
+cross-entropy loss and the SwiGLU, GELU and gated-GELU MLPs. Mirrors
 ``repro/models/common.py``; parameters are plain nested dicts of tensors,
 as the reference's value trees are.
 """
@@ -240,9 +240,13 @@ def softmax_cross_entropy(logits, targets, mask=None, z_loss: float = 0.0):
 
 
 def init_mlp(gen, cfg: ModelConfig, d_ff: int | None = None):
-    """``swiglu``: gate, up and down; any other kind is the GELU MLP (up
-    and down with zero biases), as in the reference."""
+    """``swiglu``: gate, up and down; ``geglu``: gate and up as one
+    product (gate the first half) and down, no biases; any other kind is
+    the GELU MLP (up and down with zero biases), as in the reference."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp_kind == "geglu":
+        return {"w_gate_up": param(gen, (d, 2 * f), pdtype(cfg)),
+                "w_down": param(gen, (f, d), pdtype(cfg))}
     if cfg.mlp_kind == "swiglu":
         return {
             "w_gate": param(gen, (d, f), pdtype(cfg)),
@@ -257,11 +261,20 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: int | None = None):
     }
 
 
-def apply_mlp(params, x, cfg: ModelConfig):
-    """SwiGLU, or the GELU MLP with ``jax.nn.gelu``'s default, the tanh
-    approximation."""
+def apply_mlp(params, x, cfg: ModelConfig, adapter=None):
+    """SwiGLU; the gated GELU (exact erf GELU of the gate times the up
+    half; ``adapter`` {a [D, r], b [r, 2F]} adds ``(x a) b`` to the gate/up
+    product, a call's own low-rank term); or the GELU MLP with
+    ``jax.nn.gelu``'s default, the tanh approximation."""
     dt = adtype(cfg)
     x = x.to(dt)
+    if cfg.mlp_kind == "geglu":
+        gu = torch.matmul(x, params["w_gate_up"].to(dt))
+        if adapter is not None:
+            low = torch.matmul(x, adapter["a"].to(dt))
+            gu = gu + torch.matmul(low, adapter["b"].to(dt))
+        gate, up = gu.chunk(2, dim=-1)
+        return torch.matmul(F.gelu(gate) * up, params["w_down"].to(dt))
     if cfg.mlp_kind == "swiglu":
         gate = torch.matmul(x, params["w_gate"].to(dt))
         up = torch.matmul(x, params["w_up"].to(dt))

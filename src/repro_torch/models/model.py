@@ -3,7 +3,8 @@
 The dense, moe and vlm families (``TransformerLM``, GQA or MLA: ``init``,
 ``prefill``, ``loss``, ``init_cache``, ``cache_axes``,
 ``prefill_into_cache`` (GQA only), ``decode_step``), the ssm family
-(``MambaLM``), the hybrid family (``ZambaLM``) and the encdec family
+(``MambaLM``), the hybrid family (``ZambaLM``), the port's zamba2 family
+(``Zamba2LM``: ``init``, ``prefill``, ``loss``) and the encdec family
 (``WhisperModel``: the same without ``prefill_into_cache``, plus
 ``encode``, ``decode_stack`` and ``fill_cross_cache``) are ported, with
 ``input_specs(cfg, shape)``: the stand-ins and logical axes of every
@@ -17,7 +18,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.common import adtype
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.whisper import WhisperModel
-from repro_torch.models.zamba import MambaLM, ZambaLM
+from repro_torch.models.zamba import MambaLM, Zamba2LM, ZambaLM
 
 
 def build_model(cfg: ModelConfig, n_pe: int = 0):
@@ -31,6 +32,8 @@ def build_model(cfg: ModelConfig, n_pe: int = 0):
         return MambaLM(cfg)
     if cfg.family == "hybrid":
         return ZambaLM(cfg, n_pe=n_pe)
+    if cfg.family == "zamba2":
+        return Zamba2LM(cfg, n_pe=n_pe)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

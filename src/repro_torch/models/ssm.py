@@ -8,8 +8,11 @@ recurrence over a conv window and an SSM state per row.
 
 Numerics follow the reference: the causal conv sums its K taps one by one
 in the activation dtype, then adds the bias, then applies silu; the gated
-RMSNorm uses eps = 1e-6 (not ``cfg.norm_eps``); ``A_log``, ``D`` and
-``dt_bias`` are fp32 whatever the parameter dtype.
+RMSNorm normalises each of the ``cfg.ssm_ngroups`` groups of d_inner
+apart (one group in every configuration the reference has, so the whole
+d_inner there), with eps ``cfg.gated_norm_eps`` (1e-6 by default, not
+``cfg.norm_eps``; the published Zamba2: 2 groups, 1e-5); ``A_log``, ``D``
+and ``dt_bias`` are fp32 whatever the parameter dtype.
 """
 from __future__ import annotations
 
@@ -24,8 +27,6 @@ from repro_torch.kernels.causal_conv.kernel import (  # noqa: F401
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.common import adtype, param, pdtype
 from repro_torch.obs import trace
-
-GATED_NORM_EPS = 1e-6
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -69,16 +70,21 @@ def _split_xbc(xbc, cfg: ModelConfig):
 
 
 def _gated_norm_out(params, y, z, cfg: ModelConfig):
-    """Gated RMSNorm (the gate inside the norm), then the out projection:
-    the spans ``mamba2.gated_norm`` (up to the cast) and
+    """Gated RMSNorm (the gate inside the norm; each of
+    ``cfg.ssm_ngroups`` groups of channels apart), then the out
+    projection: the spans ``mamba2.gated_norm`` (up to the cast) and
     ``mamba2.out_proj``."""
     dt_ = adtype(cfg)
+    groups = cfg.ssm_ngroups
     with trace.span("mamba2.gated_norm"):
         yf = y.float() * F.silu(z.float())
+        if groups > 1:
+            yf = yf.unflatten(-1, (groups, -1))
         var = yf.square().mean(dim=-1, keepdim=True)
-        yf = yf * torch.rsqrt(var + GATED_NORM_EPS) \
-            * params["norm_scale"].float()
-        yf = yf.to(dt_)
+        yf = yf * torch.rsqrt(var + cfg.gated_norm_eps)
+        if groups > 1:
+            yf = yf.flatten(-2)
+        yf = (yf * params["norm_scale"].float()).to(dt_)
     with trace.span("mamba2.out_proj"):
         return torch.matmul(yf, params["w_out"].to(dt_))
 

@@ -1,5 +1,6 @@
-"""Mamba2 LM (mamba2-1.3b) and the Zamba2 hybrid (zamba2-1.2b). Mirrors
-``repro/models/zamba.py``.
+"""Mamba2 LM (mamba2-1.3b), the Zamba2 hybrid (zamba2-1.2b), mirroring
+``repro/models/zamba.py``, and the published Zamba2 layer (zamba2-7b),
+which the reference lacks.
 
 Parameters are nested dicts and lists of tensors, and the forward passes
 are Python loops over them:
@@ -16,6 +17,15 @@ are Python loops over them:
   blocks. Its cache is the reference's, ``{"mamba": {conv, state}
   [n_super, inner, B, ...], "attn": {k, v, pos} [n_super, B, ...],
   "tail": {conv, state} [n_tail, B, ...]}``.
+* ``Zamba2LM``: the published Zamba2 (``transformers``' ``Zamba2Model``):
+  ``layers``, a list of ``num_layers`` Mamba2 blocks; the layers in
+  ``hybrid_layer_ids`` first call one of the ``num_mem_blocks`` blocks in
+  ``shared`` (in turn: call c takes block c mod num_mem_blocks) on the
+  state and the token embedding concatenated, with no residual inside the
+  block, and the call's output, through the layer's own ``linears[c]``,
+  is added to that layer's Mamba2 input before its norm. Each call has its
+  own gate/up adapter (``adapters[c]``). Training and prefill only: it has
+  no decode cache.
 
 Both update their caches in place, and ``cache_axes()`` names every cache
 leaf's axes, so a serving backend finds a slot's row by its
@@ -33,7 +43,9 @@ While gradients are recorded, ``cfg.remat`` other than ``none``
 recomputes each Mamba2 layer, and each Zamba super-block (the shared
 block and its Mamba2 layers), in the backward, as the reference's
 ``jax.checkpoint`` wraps them (``transformer.remat``, which refuses an
-unknown value); ``selective`` is ``full`` here, as there.
+unknown value); ``selective`` is ``full`` here, as there. ``Zamba2LM``
+checkpoints each Mamba2 layer and each shared-block call on its own, with
+no nesting, so a step recomputes each once.
 """
 from __future__ import annotations
 
@@ -84,12 +96,15 @@ def init_mamba_block(gen, cfg: ModelConfig):
     return {"norm": init_norm(gen, cfg), "mixer": ssm.init_mamba2(gen, cfg)}
 
 
-def mamba_block(lp, x, cfg: ModelConfig):
+def mamba_block(lp, x, cfg: ModelConfig, tau=None):
     """One pre-norm Mamba2 block over a full sequence (the span
-    ``mamba2.block``, opened again by remat's recompute)."""
+    ``mamba2.block``, opened again by remat's recompute); ``tau``, a
+    shared block's output, joins the norm's input only (the published
+    Zamba2's hybrid layer)."""
     with trace.span("mamba2.block"):
+        h = x if tau is None else x + tau
         return x + ssm.mamba2_forward(lp["mixer"],
-                                      apply_norm(lp["norm"], x, cfg), cfg)
+                                      apply_norm(lp["norm"], h, cfg), cfg)
 
 
 def _mamba_step(lp, x, cache, cfg: ModelConfig, active):
@@ -322,3 +337,110 @@ class ZambaLM:
         x = apply_norm(params["final_norm"], x, cfg)
         logits = lm_logits(params["head"], params["embed"], x, cfg)
         return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Published Zamba2 (Zamba2-7B-Instruct's layer)
+# ---------------------------------------------------------------------------
+
+
+def init_zamba2_shared(gen, cfg: ModelConfig):
+    """One shared block: RMSNorm over 2 d_model, MHA reading that width,
+    RMSNorm, the gated-GELU MLP."""
+    return {"norm1": init_norm(gen, cfg, d=2 * cfg.d_model),
+            "attn": attn.init_gqa(gen, cfg, d_in=2 * cfg.d_model),
+            "norm2": init_norm(gen, cfg),
+            "mlp": init_mlp(gen, cfg)}
+
+
+def init_mlp_adapter(gen, cfg: ModelConfig):
+    """A call's low-rank term of the shared MLP's gate/up product."""
+    r = cfg.adapter_rank
+    return {"a": param(gen, (cfg.d_model, r), pdtype(cfg)),
+            "b": param(gen, (r, 2 * cfg.d_ff), pdtype(cfg),
+                       scale=0.1 / r ** 0.5)}
+
+
+class Zamba2LM:
+    """The published Zamba2 over an emulated ring of ``n_pe`` PEs (0:
+    none): the shared blocks' QKV ring and ring attention, as
+    ``gqa_forward`` runs them."""
+
+    def __init__(self, cfg: ModelConfig, n_pe: int = 0):
+        if cfg.family != "zamba2":
+            raise NotImplementedError(f"{cfg.name}: Zamba2LM takes the "
+                                      f"zamba2 family, got {cfg.family!r}")
+        if cfg.num_mem_blocks < 1 or cfg.adapter_rank < 1:
+            raise ValueError(f"{cfg.name}: num_mem_blocks and adapter_rank "
+                             "must be positive")
+        self.cfg = cfg
+        self.n_pe = n_pe
+        self.hybrid = [i for i in cfg.hybrid_layer_ids if i < cfg.num_layers]
+
+    def init(self, seed: int = 0, device="cuda"):
+        """Random parameters from a seeded ``torch.Generator``."""
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        cfg = self.cfg
+        d = cfg.d_model
+        return {
+            "embed": init_embedding(gen, cfg),
+            "final_norm": init_norm(gen, cfg),
+            "head": init_lm_head(gen, cfg),
+            "shared": [init_zamba2_shared(gen, cfg)
+                       for _ in range(cfg.num_mem_blocks)],
+            "adapters": [init_mlp_adapter(gen, cfg) for _ in self.hybrid],
+            "linears": [{"w": param(gen, (d, d), pdtype(cfg))}
+                        for _ in self.hybrid],
+            "layers": [init_mamba_block(gen, cfg)
+                       for _ in range(cfg.num_layers)],
+        }
+
+    def shared_call(self, shared, adapter, linear, x, e):
+        """A hybrid layer's call of a shared block on the state ``x`` and
+        the embedding ``e`` [B,S,D]: its output through the layer's
+        ``linear`` (the span ``zamba2.shared``, its attention and MLP in
+        ``zamba2.attn`` and ``zamba2.mlp``)."""
+        cfg = self.cfg
+        with trace.span("zamba2.shared"):
+            with trace.span("zamba2.attn"):
+                h = apply_norm(shared["norm1"], torch.cat([x, e], dim=-1),
+                               cfg)
+                h = attn.gqa_forward(shared["attn"], h, cfg, n_pe=self.n_pe)
+            with trace.span("zamba2.mlp"):
+                h = apply_norm(shared["norm2"], h, cfg)
+                h = apply_mlp(shared["mlp"], h, cfg, adapter=adapter)
+            return torch.matmul(h, linear["w"].to(adtype(cfg)))
+
+    def hidden_states(self, params, tokens):
+        """tokens [B,S] -> final-norm hidden states [B,S,D]."""
+        cfg = self.cfg
+        mamba_body = remat(functools.partial(mamba_block, cfg=cfg), cfg,
+                           keep_products=False)
+        shared_body = remat(self.shared_call, cfg, keep_products=False)
+        call = {layer: c for c, layer in enumerate(self.hybrid)}
+        e = embed(params["embed"], tokens, cfg)
+        x = e
+        for i, lp in enumerate(params["layers"]):
+            c = call.get(i)
+            tau = None if c is None else shared_body(
+                params["shared"][c % cfg.num_mem_blocks],
+                params["adapters"][c], params["linears"][c], x, e)
+            x = mamba_body(lp, x, tau=tau)
+        return apply_norm(params["final_norm"], x, cfg)
+
+    def loss(self, params, batch):
+        """Training loss of ``batch`` (``tokens``, ``targets``, optionally
+        ``mask``). Returns (loss, {"ce"})."""
+        x = self.hidden_states(params, batch["tokens"])
+        return _lm_loss(self.cfg, params, x, batch)
+
+    def prefill(self, params, tokens):
+        """Forward pass returning last-position logits [B, V]."""
+        x = self.hidden_states(params, tokens)
+        return lm_logits(params["head"], params["embed"], x[:, -1], self.cfg)
+
+    def _no_cache(self, *args, **kwargs):
+        raise NotImplementedError(f"{self.cfg.name}: Zamba2LM has no decode "
+                                  "cache (training and prefill only)")
+
+    init_cache = cache_axes = decode_step = _no_cache

@@ -7,7 +7,8 @@ functions on the port's parameter tree (nested dicts, with the layers as a
 list of per-layer dicts). The optimizer state mirrors the parameter tree:
 fp32 ``m``, ``v`` (and ``master``) and an int32 ``step``. Every function
 returns new tensors and leaves its inputs as they were, as the
-reference's functions do.
+reference's functions do, except ``adamw_update``, which updates the
+moments ``m`` and ``v`` in place.
 """
 from __future__ import annotations
 
@@ -126,27 +127,30 @@ def init_opt_state(params, tcfg: TrainConfig):
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, tcfg: TrainConfig):
     """One AdamW step. grads fp32 (post-clip). Returns (params, opt_state,
-    lr)."""
+    lr).
+
+    The reference's arithmetic, leaf by leaf, with the moments ``m`` and
+    ``v`` updated in place (as a donated buffer is): the returned state
+    holds the same ``m``/``v`` tensors, and new ``master`` and param
+    tensors, so a caller that keeps the masters or params it had still
+    reads them unchanged. At its peak the step then holds one set of
+    moments, not two (8 bytes a parameter less)."""
     step = opt_state["step"] + 1
     lr = learning_rate(tcfg, step)
     b1, b2 = tcfg.beta1, tcfg.beta2
     c1 = 1.0 - torch.pow(b1, step.float())
     c2 = 1.0 - torch.pow(b2, step.float())
 
-    new_m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, opt_state["m"],
-                     grads)
-    new_v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
-                     opt_state["v"], grads)
-
-    base = opt_state.get("master", params)
-
-    def upd(p, m, v):
+    def upd(g, m, v, p):
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
         p32 = p.float()
         update = (m / c1) / (torch.sqrt(v / c2) + tcfg.eps)
         return p32 - lr * (update + tcfg.weight_decay * p32)
 
-    new_base = tree_map(upd, base, new_m, new_v)
-    new_state = {"m": new_m, "v": new_v, "step": step}
+    new_base = tree_map(upd, grads, opt_state["m"], opt_state["v"],
+                        opt_state.get("master", params))
+    new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step}
     if tcfg.use_master_weights:
         new_state["master"] = new_base
     new_params = tree_map(lambda b, p: b.to(p.dtype), new_base, params)

@@ -68,7 +68,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     then compress, decompress, clip and AdamW, in the reference's order.
     ``batch`` holds ``tokens`` and ``targets`` [B,S] (and optionally a
     ``mask``) on the state's device; metrics are 0-d tensors ``loss``,
-    ``grad_norm``, ``lr``, ``ce`` and ``aux``."""
+    ``grad_norm``, ``lr``, ``ce`` and ``aux``. AdamW's moments are updated
+    in place: the state returned shares them with the state given."""
     model = build_model(cfg, n_pe=n_pe)
 
     def train_step(state, batch):

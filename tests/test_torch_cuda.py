@@ -872,6 +872,8 @@ def test_cuda_train_step_ring_vs_dense(cuda):
     before = counts()
     dense, dm = step_lib.make_train_step(cfg, tcfg, 0)(state, batch)
     assert counts() == before
+    # the step updates the moments in place: the ring starts afresh
+    state = step_lib.init_state(cfg, tcfg, 0, cuda)
     ring, rm = step_lib.make_train_step(
         replace(cfg, systolic_mode="qlr"), tcfg, 2)(state, batch)
     torch.cuda.synchronize()
@@ -1325,3 +1327,102 @@ def test_cuda_tune_three_matmul_plans_then_cache_hit(cuda, tmp_path):
     assert best_plan("matmul", (2, 1024, 1024), "bfloat16", n,
                      cache=TuneCache(cache.path)) == winner
     assert measure.trial_count() == 0
+
+
+# head_dim-224 hops (Zamba2-7B's shared attention, scale 1/sqrt(224 / 2)),
+# heads cut: (ring size, batch, queries a PE, heads, KV heads, state)
+HD224_HOPS = {
+    "mha_carried": (4, 1, 256, 8, 8, "carried"),
+    "gqa4_carried": (2, 2, 192, 8, 2, "carried"),
+    "normalized": (4, 1, 256, 8, 8, "fresh"),
+}
+ZAMBA2_7B_SCALE = (224 / 2) ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(HD224_HOPS))
+def test_cuda_flash_carry_head_dim224_hops(cuda, shape):
+    """Ring-attention hops at head_dim 224 on the tensor-core body (q read
+    from shared memory) at hop 1 with an explicit scale: the state within
+    2e-4 of its scale of the twin's, the normalized form from zero state
+    within 2e-2 of the twin's and of SDPA's at the same scale."""
+    import torch.nn.functional as F
+    n, b, s_l, h, kvh, state = HD224_HOPS[shape]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    hd, bf, rows = 224, torch.bfloat16, n * b
+    pe = torch.arange(n, device=cuda).repeat_interleave(b)
+    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(bf)
+    k = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    v = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    hop = 0 if state == "fresh" else 1
+    if state == "fresh":
+        m = torch.full((rows, h, s_l), -1e30, device=cuda)
+        l = torch.zeros(rows, h, s_l, device=cuda)
+        acc = torch.zeros(rows, h, s_l, hd, device=cuda)
+    else:
+        m = torch.randn(rows, h, s_l, generator=g, device=cuda)
+        m[::3] = -1e30
+        l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
+        acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
+    big = torch.full((rows,), 2 ** 30, device=cuda)
+    args = (q, k, v, m, l, acc, pe * s_l, (pe - hop) % n * s_l, big, None)
+    opts = dict(causal=True, normalize=state == "fresh",
+                out_dtype=bf if state == "fresh" else None,
+                scale=ZAMBA2_7B_SCALE)
+    before = fk.FLASH_CARRY.launches
+    got = fk.flash_carry_cuda(*args, **opts)
+    assert fk.FLASH_CARRY.launches == before + 1
+    want = fk.flash_carry_plain(*args, **opts)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want[2].float().abs().max()))
+    tol = 2e-2 if state == "fresh" else 2e-4
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        assert float((x.float() - y.float()).abs().max()) <= tol * scale
+    if state == "fresh":
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt, vt = (x.repeat_interleave(h // kvh, 1) for x in (kt, vt))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=ZAMBA2_7B_SCALE)
+        assert float((sdpa.float() - got[2].float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, ZAMBA2_7B_SCALE])
+def test_cuda_flash_carry_head_dim224_grads(cuda, scale):
+    """The backward at head_dim 224 (the CUDA-core body) through
+    ``_FlashCarry``: one launch, bit-identical twice, within the bounds of
+    ``test_cuda_flash_carry_grads_at_training_hop`` of the closed-form
+    twin at the same scale (bf16 gradients 2^-7 of the largest, the state
+    gradients 1e-5 of max(1, the largest))."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, rows, s_l, h, kvh, hd = 4, 4, 128, 8, 8, 224
+    pe = torch.arange(n, device=cuda)
+    bf = torch.bfloat16
+    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(bf)
+    k = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    v = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
+    m = torch.randn(rows, h, s_l, generator=g, device=cuda)
+    m[::3] = -1e30
+    l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
+    acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
+    ints = (pe * s_l, (pe - 1) % n * s_l,
+            torch.full((rows,), 2 ** 30, device=cuda), None)
+    ins = (q, k, v, m, l, acc)
+    diff = [x.clone().requires_grad_(True) for x in ins]
+    outs = fk._FlashCarry.apply(*diff, *ints, True, 0, False, None, scale)
+    ups = [torch.randn(x.shape, generator=g, device=cuda) for x in outs]
+    before = fk.FLASH_CARRY_BWD.launches
+    got = torch.autograd.grad(outs, diff, ups, retain_graph=True)
+    assert fk.FLASH_CARRY_BWD.launches == before + 1
+    again = torch.autograd.grad(outs, diff, ups)
+    want = fk.flash_carry_backward_plain(
+        *ins, *ints, *(o.detach() for o in outs), *ups, causal=True,
+        scale=scale)
+    torch.cuda.synchronize()
+    for i, (x, y, z) in enumerate(zip(got, want, again)):
+        assert bool(torch.isfinite(x).all())
+        assert torch.equal(x, z), f"gradient {i} differs between calls"
+        big = float(y.float().abs().max())
+        tol = 2 ** -7 * big if x.dtype == bf else 1e-5 * max(1.0, big)
+        torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)

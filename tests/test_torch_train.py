@@ -199,6 +199,28 @@ def test_adamw_update_vs_reference(ref, master):
     assert all(t.dtype == dt for t in opt.tree_leaves(pparams))
 
 
+def test_adamw_update_moments_in_place_masters_and_params_new():
+    """The moments are updated in place and shared with the state
+    returned; masters and params are new tensors, so a caller still holds
+    the ones it had unchanged (the benchmark's check measures the change
+    from them)."""
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=1, total_steps=10)
+    params = _torch(_random_tree(3), torch.bfloat16)
+    state = opt.init_opt_state(params, tcfg)
+    m, v = opt.tree_leaves(state["m"]), opt.tree_leaves(state["v"])
+    masters = opt.tree_leaves(state["master"])
+    before = [t.clone() for t in masters + opt.tree_leaves(params)]
+    new_params, new_state, _ = opt.adamw_update(_torch(_random_tree(10)),
+                                                state, params, tcfg)
+    assert all(a is b for a, b in zip(opt.tree_leaves(new_state["m"]), m))
+    assert all(a is b for a, b in zip(opt.tree_leaves(new_state["v"]), v))
+    assert all(bool(t.abs().sum() > 0) for t in m + v)
+    for old, now in zip(masters + opt.tree_leaves(params), before):
+        assert torch.equal(old, now)
+    moved = opt.tree_leaves(new_state["master"]) + opt.tree_leaves(new_params)
+    assert not any(torch.equal(a, b) for a, b in zip(moved, before))
+
+
 # ---------------------------------------------------------------------------
 # loss and gradients
 # ---------------------------------------------------------------------------

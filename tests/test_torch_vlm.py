@@ -36,6 +36,7 @@ from test_torch_reference import (  # noqa: F401 (fixture)
 )
 
 from repro_torch.configs import TrainConfig, get_config, get_smoke_config
+from repro_torch.configs.base import PORT_FIELDS
 from repro_torch.core import collective_matmul as cm
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.systolic_matmul import kernel as mk
@@ -122,6 +123,9 @@ def test_configs_match_reference(ref):
     for mine, theirs in ((get_config(ARCH), r_config(ARCH)),
                          (get_smoke_config(ARCH), r_smoke(ARCH))):
         for f in fields(mine):
+            if f.name in PORT_FIELDS:      # the port's own, at its default
+                assert getattr(mine, f.name) == f.default, f.name
+                continue
             assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
 
 
