@@ -51,12 +51,13 @@
 // reference's VJP counts them; the kernel does 14, S and dP in both
 // passes) are ~0.05 ms on the tensor cores. Two bodies, chosen as the
 // forward's are:
-// * bf16 q and K/V with Sq > 1 at D = 64 or 128 (every training hop), four
-//   launches, each shaped against what held the first form back:
+// * bf16 q and K/V with Sq > 1 at D = 64, 128 or 224 (every training hop),
+//   four launches, each shaped against what held the first form back:
 //   - prep: the fp32 preamble (g_acc . acc, g_acc . acc_new, g_acc_in, the
 //     bf16 copy of g_acc, dl, r) as a pass of its own at full occupancy,
-//     D/4 lanes a row with a float4 each, so that neighbouring lanes read
-//     and write neighbouring 16 bytes (it was pass A's prologue, a quarter
+//     D/4 lanes a row with a float4 each (8 lanes with 7 at D = 224, where
+//     56 would not divide a warp), so that neighbouring lanes read and
+//     write neighbouring 16 bytes (it was pass A's prologue, a quarter
 //     row a lane, 128 bytes apart at D = 128, under 2 blocks an SM).
 //   - pass A: mma.sync.m16n8k16 (bf16 operands, fp32 accumulation, as
 //     FlashAttention-2 takes them). The block's q and g_acc wait in shared
@@ -64,7 +65,8 @@
 //     fragments held for the whole sweep: 255 registers and spills at D =
 //     128); K/V tiles stream through a cp.async ring of 3 stages at D = 64
 //     (3 blocks an SM) and 2 at D = 128 (2 blocks an SM; a third would
-//     leave one).
+//     leave one) and D = 224 (one block an SM: 174 KB of tiles; dQ is
+//     112 registers a lane).
 //   - pass B computes S and dP with mma.sync and the query rows as the M
 //     side, exactly as pass A and the forward do, so every score and every
 //     tie test is bit for bit the same in both passes; P and dS are rounded
@@ -75,6 +77,17 @@
 //     them again for its 16 keys; each chunk's wgmma runs on while the next
 //     chunk's S and dP are taken. At D = 64 K's B fragments stay in
 //     registers.
+//   - pass B at D = 224: dK and dV over all 224 columns would be 224
+//     accumulator registers a lane. So a block holds two warpgroups (256
+//     threads) that share its K/V tile and the streamed Q and G tiles and
+//     split D's columns: warpgroup 0 keeps dK and dV of columns 0-127
+//     (wgmma m64n128k16, 128 registers a lane), warpgroup 1 of 128-223
+//     (m64n96k16, 96). Each takes S and dP over the full 224 itself, as
+//     above, so both hold P^T and dS^T in registers and every score and
+//     tie test stays the same bits (the S and dP products are done twice;
+//     the hop is bound by bytes). Q and G are laid out in the 64-byte
+//     swizzle (32-column panels): 128 and 96 are whole panels, which the
+//     128-byte swizzle's 64-column panels would not give.
 //   - Where Bk x Kv x T/64 pass B blocks fall below two waves of the card
 //     (GQA hops: 256 blocks at internvl2's and mixtral's), the wrapper
 //     splits each key tile's items into nsplit contiguous shares; each
@@ -97,10 +110,8 @@
 //   warps (a lane per query row); the warps' partials are summed in a
 //   fixed order in shared memory. Both compute a score as the same
 //   ascending chain of fmaf, so their tie tests agree. Head dims above 128
-//   (Zamba2's 224) take instances with room for 224 columns and half the
-//   warps where the full count would not fit in shared memory; the tensor-
-//   core body's wgmma accumulators (dK and dV, D/2 registers a lane each)
-//   do not fit at 224 without splitting D, which is left for later.
+//   (fp32 at Zamba2's 224) take instances with room for 224 columns and
+//   half the warps where the full count would not fit in shared memory.
 //
 // dtype codes: 0 = float32, 1 = bfloat16.
 #include <cuda_runtime.h>
@@ -225,14 +236,15 @@ constexpr int TC_ROWS = 64, TC_KEYS = 64, TC_THREADS = 128, PREP_THREADS = 256,
 
 // Pass A: q, g_acc (bf16) and a ring of K/V tiles, padded rows read by
 // ldmatrix. Three stages at D = 64 (three blocks an SM), two at D = 128
-// (two blocks an SM; a third stage would leave one). At D = 64, two stages
-// and four blocks an SM spill (128 registers).
+// (two blocks an SM; a third stage would leave one) and at D = 224 (one
+// block an SM). At D = 64, two stages and four blocks an SM spill (128
+// registers).
 template <int D>
 struct TcA {
   static constexpr int ROW = D + 8;                  // padded row, bf16 elements
   static constexpr int TILE = 64 * ROW;              // one 64-row tile
   static constexpr int STAGES = D == 64 ? 3 : 2;
-  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int SMEM = (2 + 2 * STAGES) * TILE * 2;
 };
 
@@ -246,6 +258,7 @@ struct TcA {
 // and four blocks an SM at D = 64, 128 keys (8 warps) a block.
 template <int D>
 struct TcB {
+  static constexpr int THREADS = TC_THREADS;
   static constexpr int ROW = D + 8;
   static constexpr int TILE = 64 * ROW;
   static constexpr int PANEL = 64 * 128;             // bytes: 64 rows x 64 columns
@@ -256,10 +269,31 @@ struct TcB {
   static constexpr int MIN_BLOCKS = D == 64 ? 3 : 2;
 };
 
+// Pass B at D = 224: two warpgroups split dK's and dV's columns (N0 and
+// N1); the Q and G tiles in the 64-byte swizzle (64-row panels of 32
+// columns; a row's 16-byte chunk c of a panel sits at chunk c ^ (row / 2 %
+// 4)). One block an SM (174 KB of shared memory).
+template <>
+struct TcB<224> {
+  static constexpr int THREADS = 2 * TC_THREADS;
+  static constexpr int N0 = 128, N1 = 96;            // warpgroup 0's, 1's columns
+  static constexpr int ROW = 224 + 8;
+  static constexpr int TILE = 64 * ROW;
+  static constexpr int PANEL = 64 * 64;              // bytes: 64 rows x 32 columns
+  static constexpr int QG = 64 * 224 * 2;            // bytes: one Q or G tile, 7 panels
+  static constexpr int SCAL = 5 * TC_ROWS;
+  static constexpr int SMEM = 1024 + 2 * TILE * 2 + 2 * (2 * QG + SCAL * 4);
+  static constexpr int MIN_BLOCKS = 1;
+};
+
 // the byte offset of row j's 16-byte chunk c in a swizzled Q or G tile
 template <int D>
 __device__ __forceinline__ uint32_t qg_off(int j, int c) {
   return (c >> 3) * TcB<D>::PANEL + j * 128 + (((c & 7) ^ (j & 7)) << 4);
+}
+template <>
+__device__ __forceinline__ uint32_t qg_off<224>(int j, int c) {
+  return (c >> 2) * TcB<224>::PANEL + j * 64 + (((c & 3) ^ ((j >> 1) & 3)) << 4);
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
@@ -347,6 +381,29 @@ __device__ __forceinline__ void wgmma_ra_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_ra_n96(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared-memory matrix descriptor, 64-byte swizzle: every swizzle atom (8
+// rows of 64 bytes) starts on 512 bytes.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_ra(float* d, const uint32_t* a, uint64_t db) {
   if constexpr (D == 64) wgmma_ra_n64(d, a, db);
@@ -372,16 +429,25 @@ __device__ __forceinline__ bool tile_live(int t0, int T, int ko, int kl, int qpo
          (window <= 0 || qpos_max - lo < window);
 }
 
+// lanes of the prep pass a row: D/4 where that divides a warp (a float4
+// each), else the largest power of two that divides D/4 (8 at D = 224,
+// seven float4 each, 32 columns apart)
+template <int D>
+__host__ __device__ constexpr int prep_lanes() {
+  return (D / 4) & -(D / 4);
+}
+
 // The fp32 preamble, a pass of its own at full occupancy: per (query row
 // b', head, query) row, g_acc . acc and g_acc . acc_new, g_acc_in = g_acc
-// corr and g_acc in bf16 (for the products). D/4 lanes take a row, a
-// float4 each: neighbouring lanes read and write neighbouring 16 bytes.
-// dl is final here; dm holds corr (g_l l + g_acc . acc) and tie_w holds r
-// until pass A adds the max route.
+// corr and g_acc in bf16 (for the products). prep_lanes<D>() lanes take a
+// row, a float4 at a time: neighbouring lanes read and write neighbouring
+// 16 bytes. dl is final here; dm holds corr (g_l l + g_acc . acc) and
+// tie_w holds r until pass A adds the max route.
 template <int D>
 __global__ void __launch_bounds__(PREP_THREADS)
 flash_carry_bwd_kernel_prep(const Args a) {
-  constexpr int LPR = D / 4;                              // lanes a row
+  constexpr int LPR = prep_lanes<D>();                    // lanes a row
+  constexpr int VPL = D / 4 / LPR;                        // float4s a lane
   const long long nrows = (long long)a.Bp * a.H * a.Sq;
   const long long row =
       (long long)blockIdx.x * (PREP_THREADS / LPR) + threadIdx.x / LPR;
@@ -390,20 +456,23 @@ flash_carry_bwd_kernel_prep(const Args a) {
   float s1 = 0.f, s2 = 0.f, corr = 0.f;
   if (ok) {
     corr = expf(a.m[row] - a.m_new[row]);
-    const size_t base = (size_t)row * D + c;
-    const float4 g4 = *reinterpret_cast<const float4*>(a.g_acc + base);
-    const float4 a4 = *reinterpret_cast<const float4*>(a.acc + base);
-    const float4 n4 = *reinterpret_cast<const float4*>(a.acc_new + base);
-    s1 = fmaf(g4.x, a4.x, s1); s1 = fmaf(g4.y, a4.y, s1);
-    s1 = fmaf(g4.z, a4.z, s1); s1 = fmaf(g4.w, a4.w, s1);
-    s2 = fmaf(g4.x, n4.x, s2); s2 = fmaf(g4.y, n4.y, s2);
-    s2 = fmaf(g4.z, n4.z, s2); s2 = fmaf(g4.w, n4.w, s2);
-    *reinterpret_cast<float4*>(a.dacc + base) =
-        make_float4(g4.x * corr, g4.y * corr, g4.z * corr, g4.w * corr);
-    uint2 u;
-    u.x = pack_bf16(g4.x, g4.y);
-    u.y = pack_bf16(g4.z, g4.w);
-    *reinterpret_cast<uint2*>(a.g16 + base) = u;
+#pragma unroll
+    for (int x = 0; x < VPL; ++x) {
+      const size_t base = (size_t)row * D + c + x * 4 * LPR;
+      const float4 g4 = *reinterpret_cast<const float4*>(a.g_acc + base);
+      const float4 a4 = *reinterpret_cast<const float4*>(a.acc + base);
+      const float4 n4 = *reinterpret_cast<const float4*>(a.acc_new + base);
+      s1 = fmaf(g4.x, a4.x, s1); s1 = fmaf(g4.y, a4.y, s1);
+      s1 = fmaf(g4.z, a4.z, s1); s1 = fmaf(g4.w, a4.w, s1);
+      s2 = fmaf(g4.x, n4.x, s2); s2 = fmaf(g4.y, n4.y, s2);
+      s2 = fmaf(g4.z, n4.z, s2); s2 = fmaf(g4.w, n4.w, s2);
+      *reinterpret_cast<float4*>(a.dacc + base) =
+          make_float4(g4.x * corr, g4.y * corr, g4.z * corr, g4.w * corr);
+      uint2 u;
+      u.x = pack_bf16(g4.x, g4.y);
+      u.y = pack_bf16(g4.z, g4.w);
+      *reinterpret_cast<uint2*>(a.g16 + base) = u;
+    }
   }
 #pragma unroll
   for (int o = LPR / 2; o > 0; o >>= 1) {
@@ -731,7 +800,7 @@ flash_carry_bwd_kernel_rows_mma(const Args a) {
 // shared memory once for all four warps. SPLIT: the share's fp32 partials
 // go to scratch for the fixed-order sum; otherwise dK and dV themselves.
 template <int D, bool SPLIT>
-__global__ void __launch_bounds__(TC_THREADS, TcB<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(TcB<D>::THREADS, TcB<D>::MIN_BLOCKS)
 flash_carry_bwd_kernel_keys_mma(const Args a) {
   using Cfg = TcB<D>;
   constexpr int ROW = Cfg::ROW, CH = D / 8;       // 16-byte chunks a row
@@ -996,6 +1065,271 @@ flash_carry_bwd_kernel_keys_mma(const Args a) {
       }
     }
   }
+}
+
+// Pass B at D = 224: the 64/128 body's items, S, dP, P and dS in two
+// warpgroups of four warps; warp w of either takes keys 16w..16w+15 of S
+// and dP over all 224 columns, and warpgroup g keeps dK and dV of its own
+// columns, [0, N0) or [N0, N0 + N1), by wgmma from the shared Q and G
+// tiles. Both warpgroups meet at the block's barriers.
+template <bool SPLIT>
+__device__ __forceinline__ void keys_wide(const Args& a) {
+  using Cfg = TcB<224>;
+  constexpr int D = 224, ROW = Cfg::ROW, CH = D / 8, THREADS = Cfg::THREADS;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + Cfg::TILE;
+  const uint32_t qg_s = smem_u32(vs + Cfg::TILE);        // [stage][Q, G], 1024-aligned
+  float* scal = reinterpret_cast<float*>(smem + 2 * Cfg::TILE * 2 + 4 * Cfg::QG);
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  const int kv_tiles = (a.T + TC_KEYS - 1) / TC_KEYS;
+  const int share = blockIdx.x / kv_tiles, t0 = (blockIdx.x % kv_tiles) * TC_KEYS;
+  const int kr = blockIdx.z, kvh = blockIdx.y;
+  const int nt = min(TC_KEYS, a.T - t0);
+  const int G = a.H / a.Kv, Sq = a.Sq, T = a.T, rows = G * Sq;
+  const int ntile = (rows + TC_ROWS - 1) / TC_ROWS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wk = warp & 3;        // warpgroup; its warp's keys 16 wk..
+  const float sl2 = a.scale * LOG2E;
+
+  {
+    const long long kv_base = (long long)kr * a.kv_sb + (long long)kvh * a.kv_sh;
+#pragma unroll
+    for (int i = 0; i < TC_KEYS * CH / THREADS; ++i) {
+      const int idx = tid + i * THREADS, j = idx / CH, c = (idx % CH) * 8;
+      const bool ok = j < nt;
+      const long long off = kv_base + (long long)(t0 + j) * a.kv_st + c;
+      cp_async16(smem_u32(ks + j * ROW + c), ok ? k + off : k, ok);
+      cp_async16(smem_u32(vs + j * ROW + c), ok ? v + off : v, ok);
+    }
+    cp_async_commit();
+  }
+
+  // this share's items, in order: item n is query tile n % ntile of the
+  // n / ntile-th query row that reads K/V row kr
+  const int i0 = a.start[kr];
+  const int* bounds = a.share + (size_t)kr * (a.nsplit + 1) + share;
+  const int n_end = bounds[1];
+  auto needed = [&](int n) {
+    const int b = a.order[i0 + n / ntile], tile = n % ntile, r0 = tile * TC_ROWS;
+    int s_min, s_max;
+    position_range(r0, min(TC_ROWS, rows - r0), Sq, s_min, s_max);
+    const int qo = a.q_off[b];
+    return !(tile_dead(t0, nt, a.k_off[b], a.klen[b], qo + s_min, qo + s_max, a.causal,
+                       a.window) &&
+             a.resolved[((size_t)b * a.Kv + kvh) * ntile + tile]);
+  };
+  auto next_needed = [&](int n) {
+    while (n < n_end && !needed(n)) ++n;
+    return n;
+  };
+  auto load_item = [&](int n, int st) {
+    const int b = a.order[i0 + n / ntile], r0 = (n % ntile) * TC_ROWS;
+    const uint32_t qs = qg_s + (2 * st) * Cfg::QG, gs = qs + Cfg::QG;
+    const int g0 = r0 / Sq, s0 = r0 % Sq;
+    auto group_pos = [&](int j, int& g, int& s) {
+      if (Sq >= TC_ROWS) {
+        s = s0 + j;
+        g = g0 + (s >= Sq);
+        s -= s >= Sq ? Sq : 0;
+      } else {
+        g = (r0 + j) / Sq;
+        s = (r0 + j) % Sq;
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < TC_ROWS * CH / THREADS; ++i) {
+      const int idx = tid + i * THREADS, j = idx / CH, c = idx % CH;
+      const bool ok = r0 + j < rows;
+      int g, s;
+      group_pos(j, g, s);
+      const int h = kvh * G + (ok ? g : 0);
+      s = ok ? s : 0;
+      const __nv_bfloat16* qsrc = q + b * a.q_sb + s * a.q_ss + h * a.q_sh + c * 8;
+      const __nv_bfloat16* gsrc = a.g16 + (((size_t)b * a.H + h) * Sq + s) * D + c * 8;
+      cp_async16(qs + qg_off<D>(j, c), ok ? qsrc : q, ok);
+      cp_async16(gs + qg_off<D>(j, c), ok ? gsrc : a.g16, ok);
+    }
+    if (tid < TC_ROWS) {
+      float* sc = scal + st * Cfg::SCAL;
+      const bool ok = r0 + tid < rows;
+      int g, s;
+      group_pos(tid, g, s);
+      g = ok ? g : 0;
+      s = ok ? s : 0;
+      const size_t si = ((size_t)b * a.H + kvh * G + g) * Sq + s;
+      cp_async4(smem_u32(sc + tid), a.m_new + si, ok);
+      cp_async4(smem_u32(sc + TC_ROWS + tid), a.g_l + si, ok);
+      cp_async4(smem_u32(sc + 2 * TC_ROWS + tid), a.tie_max + si, ok);
+      cp_async4(smem_u32(sc + 3 * TC_ROWS + tid), a.tie_w + si, ok);
+      reinterpret_cast<int*>(sc)[4 * TC_ROWS + tid] = ok ? s : -1;
+    }
+  };
+
+  // wgmma's accumulators: value 4j + i at key 16 wk + lane/4 + 8 (i >> 1),
+  // column c0 + 8j + 2 (lane % 4) + (i & 1); warpgroup 1 fills the first
+  // N1 / 2 of them
+  const int c0 = wg * Cfg::N0, nj = (wg ? Cfg::N1 : Cfg::N0) / 8;
+  const uint32_t pan = wg * (Cfg::N0 / 32) * Cfg::PANEL;  // the warpgroup's first panel
+  float dk[Cfg::N0 / 2], dv[Cfg::N0 / 2];
+#pragma unroll
+  for (int j = 0; j < Cfg::N0 / 2; ++j) dk[j] = dv[j] = 0.f;
+  const int kv_key = wk * 16 + (lane & 7) + (lane >> 4) * 8;
+  int cur = next_needed(bounds[0]), st = 0;
+  if (cur < n_end) load_item(cur, 0);
+  cp_async_commit();
+  while (cur < n_end) {
+    const int nxt = next_needed(cur + 1);
+    if (nxt < n_end) load_item(nxt, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t qs = qg_s + (2 * st) * Cfg::QG, gs = qs + Cfg::QG;
+    const float* sc = scal + st * Cfg::SCAL;
+    const int* spos = reinterpret_cast<const int*>(sc) + 4 * TC_ROWS;
+    const int b = a.order[i0 + cur / ntile];
+    const int r0 = (cur % ntile) * TC_ROWS;
+    const int qo = a.q_off[b], ko = a.k_off[b], kl = a.klen[b];
+    int s_min, s_max;
+    position_range(r0, min(TC_ROWS, rows - r0), Sq, s_min, s_max);
+    const bool all_live = tile_live(t0, T, ko, kl, qo + s_min, qo + s_max, a.causal,
+                                    a.window);
+    const bool full = all_live && t0 + TC_KEYS <= T;
+    for (int ch = 0; ch < TC_ROWS / 16 && r0 + ch * 16 < rows; ++ch) {
+      // S and dP for 16 query rows (M side) x the warp's 16 keys, as pass A
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const int arow = ch * 16 + (lane & 15);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t af[4], bk[4];
+        const int d = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(af, qs + qg_off<D>(arow, kk * 2 + (lane >> 4)));
+        ldmatrix_x4(bk, smem_u32(ks + kv_key * ROW + d));
+        mma_bf16(s[0], af, bk[0], bk[1]);
+        mma_bf16(s[1], af, bk[2], bk[3]);
+        ldmatrix_x4(af, gs + qg_off<D>(arow, kk * 2 + (lane >> 4)));
+        ldmatrix_x4(bk, smem_u32(vs + kv_key * ROW + d));
+        mma_bf16(dp[0], af, bk[0], bk[1]);
+        mma_bf16(dp[1], af, bk[2], bk[3]);
+      }
+      float mn[2], glr[2], tmx[2], twr[2];
+      int spr[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = ch * 16 + (lane >> 2) + 8 * e;
+        mn[e] = sc[row];
+        glr[e] = sc[TC_ROWS + row];
+        tmx[e] = sc[2 * TC_ROWS + row];
+        twr[e] = sc[3 * TC_ROWS + row];
+        spr[e] = spos[row];
+      }
+      if (full && r0 + ch * 16 + 16 <= rows) {
+        const float mb[2] = {mn[0] * LOG2E, mn[1] * LOG2E};
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = i >> 1;
+            const float sv = s[h2][i] * a.scale;
+            const float p = ex2(fmaf(s[h2][i], sl2, -mb[e]));
+            s[h2][i] = p;
+            dp[h2][i] = p * (dp[h2][i] + glr[e]) + (sv == tmx[e] ? twr[e] : 0.f);
+          }
+      } else {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = i >> 1;
+            const int key = t0 + wk * 16 + h2 * 8 + (lane & 3) * 2 + (i & 1);
+            const bool in = key < T && spr[e] >= 0;
+            const bool live =
+                in && (all_live || key_ok(ko + key, qo + spr[e], kl, a.causal, a.window));
+            const float sv = live ? s[h2][i] * a.scale : NEG;
+            const float p = in ? ex2((sv - mn[e]) * LOG2E) : 0.f;
+            s[h2][i] = p;
+            dp[h2][i] =
+                live ? p * (dp[h2][i] + glr[e]) + (sv == tmx[e] ? twr[e] : 0.f) : 0.f;
+          }
+      }
+      wgmma_wait0();
+      uint32_t pt[4], dst[4];
+      pt[0] = movtrans(pack_bf16(s[0][0], s[0][1]));
+      pt[1] = movtrans(pack_bf16(s[1][0], s[1][1]));
+      pt[2] = movtrans(pack_bf16(s[0][2], s[0][3]));
+      pt[3] = movtrans(pack_bf16(s[1][2], s[1][3]));
+      dst[0] = movtrans(pack_bf16(dp[0][0], dp[0][1]));
+      dst[1] = movtrans(pack_bf16(dp[1][0], dp[1][1]));
+      dst[2] = movtrans(pack_bf16(dp[0][2], dp[0][3]));
+      dst[3] = movtrans(pack_bf16(dp[1][2], dp[1][3]));
+      // dV += P^T G, dK += dS^T Q over the block's 64 keys and the
+      // warpgroup's columns: rows ch*16.. of its panels, N-major
+      const uint64_t dg = sw64_desc(gs + pan + ch * 16 * 64, Cfg::PANEL, 512);
+      const uint64_t dqd = sw64_desc(qs + pan + ch * 16 * 64, Cfg::PANEL, 512);
+      wgmma_fence();
+      if (wg == 0) {
+        wgmma_ra_n128(dv, pt, dg);
+        wgmma_ra_n128(dk, dst, dqd);
+      } else {
+        wgmma_ra_n96(dv, pt, dg);
+        wgmma_ra_n96(dk, dst, dqd);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait0();
+    __syncthreads();                            // stage st is refilled next
+    cur = nxt;
+    st ^= 1;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = t0 + wk * 16 + (lane >> 2) + 8 * e;
+    if (key >= T) continue;
+    const size_t base = (((size_t)kr * T + key) * a.Kv + kvh) * D + c0;
+    if constexpr (SPLIT) {
+      const size_t n = (size_t)a.Bk * T * a.Kv * D;
+      float* pk = a.part + share * n + base;
+      float* pv = a.part + (a.nsplit + share) * n + base;
+#pragma unroll
+      for (int j = 0; j < Cfg::N0 / 8; ++j) {
+        if (j < nj) {
+          const int c = j * 8 + (lane & 3) * 2;
+          store2(pk + c, dk[4 * j + 2 * e], dk[4 * j + 2 * e + 1]);
+          store2(pv + c, dv[4 * j + 2 * e], dv[4 * j + 2 * e + 1]);
+        }
+      }
+    } else {
+      __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(a.dk) + base;
+      __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(a.dv) + base;
+#pragma unroll
+      for (int j = 0; j < Cfg::N0 / 8; ++j) {
+        if (j < nj) {
+          const int c = j * 8 + (lane & 3) * 2;
+          store2(dk_out + c, dk[4 * j + 2 * e] * a.scale, dk[4 * j + 2 * e + 1] * a.scale);
+          store2(dv_out + c, dv[4 * j + 2 * e], dv[4 * j + 2 * e + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(TcB<224>::THREADS, TcB<224>::MIN_BLOCKS)
+flash_carry_bwd_kernel_keys_mma<224, false>(const Args a) {
+  keys_wide<false>(a);
+}
+template <>
+__global__ void __launch_bounds__(TcB<224>::THREADS, TcB<224>::MIN_BLOCKS)
+flash_carry_bwd_kernel_keys_mma<224, true>(const Args a) {
+  keys_wide<true>(a);
 }
 
 // dK and dV from pass B's partials: the shares summed in their order (0,
@@ -1428,7 +1762,7 @@ cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   e = allow_smem(kb, TcB<D>::SMEM, split ? attr_bs : attr_b);
   if (e != cudaSuccess) return e;
   const long long nrows = (long long)a.Bp * a.H * a.Sq;
-  constexpr int prep_rows = PREP_THREADS / (D / 4);
+  constexpr int prep_rows = PREP_THREADS / prep_lanes<D>();
   flash_carry_bwd_kernel_prep<D>
       <<<(unsigned)((nrows + prep_rows - 1) / prep_rows), PREP_THREADS, 0, s>>>(a);
   e = cudaGetLastError();
@@ -1438,7 +1772,7 @@ cudaError_t launch_mma(const Args& a, cudaStream_t s) {
   e = cudaGetLastError();
   if (e != cudaSuccess || a.T == 0) return e;
   const int kv_tiles = (a.T + TC_KEYS - 1) / TC_KEYS;
-  kb<<<dim3(kv_tiles * a.nsplit, a.Kv, a.Bk), TC_THREADS, TcB<D>::SMEM, s>>>(a);
+  kb<<<dim3(kv_tiles * a.nsplit, a.Kv, a.Bk), TcB<D>::THREADS, TcB<D>::SMEM, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || !split) return e;
   const long long n4 = (long long)a.Bk * a.T * a.Kv * D / 4;
@@ -1488,7 +1822,8 @@ cudaError_t keys_resident(int* out) {
   cudaError_t e = allow_smem(kb, TcB<D>::SMEM, attr);
   if (e != cudaSuccess) return e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kb, TC_THREADS, TcB<D>::SMEM);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kb, TcB<D>::THREADS,
+                                                    TcB<D>::SMEM);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *out = per_sm * sms;
@@ -1500,7 +1835,7 @@ cudaError_t keys_resident(int* out) {
 // Whether the tensor-core body takes these inputs (the wrapper sizes its
 // scratch by it).
 extern "C" int flash_carry_bwd_uses_mma(int q_dtype, int kv_dtype, int Sq, int D) {
-  return q_dtype == 1 && kv_dtype == 1 && Sq > 1 && (D == 64 || D == 128);
+  return q_dtype == 1 && kv_dtype == 1 && Sq > 1 && (D == 64 || D == 128 || D == 224);
 }
 
 // How many blocks of the tensor-core pass B the current device holds at
@@ -1508,8 +1843,12 @@ extern "C" int flash_carry_bwd_uses_mma(int q_dtype, int kv_dtype, int Sq, int D
 // it.
 extern "C" int flash_carry_bwd_keys_resident(int D, int* out) {
   *out = 0;
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(D == 64 ? keys_resident<64>(out) : keys_resident<128>(out));
+  switch (D) {
+    case 64: return static_cast<int>(keys_resident<64>(out));
+    case 128: return static_cast<int>(keys_resident<128>(out));
+    case 224: return static_cast<int>(keys_resident<224>(out));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int flash_carry_bwd(
@@ -1546,7 +1885,7 @@ extern "C" int flash_carry_bwd(
         misaligned(g16, 16) || misaligned(dq, 4) || misaligned(dk, 8) || misaligned(dv, 8) ||
         (nsplit > 1 && misaligned(part, 16)))
       return static_cast<int>(cudaErrorMisalignedAddress);
-    err = D == 64 ? launch_mma<64>(a, s) : launch_mma<128>(a, s);
+    err = D == 64 ? launch_mma<64>(a, s) : D == 128 ? launch_mma<128>(a, s) : launch_mma<224>(a, s);
   } else {
     err = q_dtype == 0 ? dispatch_simt<float>(a, kv_dtype, s)
                        : dispatch_simt<__nv_bfloat16>(a, kv_dtype, s);

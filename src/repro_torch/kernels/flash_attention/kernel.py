@@ -36,8 +36,9 @@ tensor-core body (``mma.sync``; at head_dim 64 with an unmasked path for
 tiles every row sees and exp2 on the special-function unit; at 224 with q
 read from shared memory); everything else (decode's single query, any
 fp32 operand, other head dims up to ``HEAD_DIM_MAX``) takes the key-split
-CUDA-core body. The backward's tensor-core body takes head_dim 64 and
-128; at 224 its CUDA-core body runs.
+CUDA-core body. The backward's tensor-core body takes the same inputs
+(``mma.sync`` and ``wgmma``); at head_dim 224 its pass B splits dK's and
+dV's columns between two warpgroups of a block, 128 + 96.
 """
 from __future__ import annotations
 
@@ -192,14 +193,21 @@ def backward_split(q, k) -> int:
     return backward_nsplit(bp, bk, t, kvh, h // kvh * sq, _RESIDENT[key])
 
 
+def prep_lanes(d: int) -> int:
+    """Lanes of the backward's prep pass a row (a float4 at a time): D/4
+    where that divides a warp, else the largest power of two dividing it
+    (8 at head_dim 224, where 56 would not)."""
+    return (d // 4) & -(d // 4)
+
+
 def backward_blocks(q, k, nsplit: int) -> dict:
     """Blocks of each pass of one tensor-core backward launch (as
     ``csrc/flash_carry_bwd.cu``'s ``launch_mma`` sizes them): the fp32
-    preamble (256 threads, D/4 a row), pass A, pass B and, when split,
-    the sum of its partials (256 threads, 4 elements each)."""
+    preamble (256 threads, ``prep_lanes`` a row), pass A, pass B and, when
+    split, the sum of its partials (256 threads, 4 elements each)."""
     bp, sq, h, d = q.shape
     bk, t, kvh, _ = k.shape
-    out = {"prep": -(-bp * h * sq // (256 // (d // 4))),
+    out = {"prep": -(-bp * h * sq // (256 // prep_lanes(d))),
            "rows": -(-(h // kvh * sq) // BWD_TILE) * kvh * bp,
            "keys": -(-t // BWD_TILE) * nsplit * kvh * bk}
     if nsplit > 1:
@@ -383,13 +391,12 @@ def flash_carry_backward_cuda(q, k, v, m, l, acc, q_off, k_off, klen,
                               g_acc, *, causal: bool, window: int = 0,
                               scale=None):
     """One launch of the backward kernel: the tensor-core body for bf16 q
-    and K/V with Sq > 1 at head_dim 64 or 128, the CUDA-core body
-    otherwise (head_dim 224 included). Query rows are grouped by the K/V
-    row they read (a stable argsort), so pass B sums each K/V row's
-    gradients over them in a fixed order; where its blocks would not fill
-    the card it splits each key tile's items into ``backward_split``
-    shares (``backward_shares``), whose fp32 partials the kernel sums in
-    share order."""
+    and K/V with Sq > 1 at head_dim 64, 128 or 224, the CUDA-core body
+    otherwise. Query rows are grouped by the K/V row they read (a stable
+    argsort), so pass B sums each K/V row's gradients over them in a
+    fixed order; where its blocks would not fill the card it splits each
+    key tile's items into ``backward_split`` shares (``backward_shares``),
+    whose fp32 partials the kernel sums in share order."""
     require_cuda_tensors("flash_carry_bwd", q, k, v, m, l, acc, q_off,
                          k_off, klen, kv_row, m_new, l_new, acc_new, g_m,
                          g_l, g_acc)

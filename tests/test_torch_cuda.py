@@ -26,6 +26,8 @@ the largest), bit-identical from call to call.
 """
 from __future__ import annotations
 
+import ctypes
+
 import pytest
 import torch
 
@@ -1387,30 +1389,58 @@ def test_cuda_flash_carry_head_dim224_hops(cuda, shape):
         assert float((sdpa.float() - got[2].float()).abs().max()) <= 2e-2
 
 
+# head_dim-224 backward hops (Zamba2-7B's shared attention, heads cut):
+# (query rows, queries a row, keys, heads, KV heads, hop, window, state,
+# operand type); 4 PEs, one query row a PE. "ragged_t200": 200 keys, so the
+# last 64-key tile is partly filled (192 would fill three); "zero_state":
+# fresh state at hop 1, PE 0's rows still at the sentinel after it; the
+# fp32 case runs the CUDA-core body
+HD224_BWD = {
+    "mha_carried": (4, 128, 128, 8, 8, 1, 0, "carried", "bf16"),
+    "gqa4": (4, 128, 128, 8, 2, 1, 0, "carried", "bf16"),
+    "ragged_t200": (4, 136, 200, 8, 8, 1, 0, "carried", "bf16"),
+    "zero_state": (4, 128, 128, 8, 8, 1, 0, "zero", "bf16"),
+    "window": (4, 128, 128, 8, 8, 1, 100, "carried", "bf16"),
+    "hop0_diagonal": (4, 128, 128, 8, 8, 0, 0, "carried", "bf16"),
+    "fp32": (4, 128, 128, 8, 8, 1, 0, "carried", "fp32"),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("scale", [None, ZAMBA2_7B_SCALE])
-def test_cuda_flash_carry_head_dim224_grads(cuda, scale):
-    """The backward at head_dim 224 (the CUDA-core body) through
-    ``_FlashCarry``: one launch, bit-identical twice, within the bounds of
+@pytest.mark.parametrize("shape, scale", [
+    ("mha_carried", None), ("mha_carried", ZAMBA2_7B_SCALE),
+    *((name, ZAMBA2_7B_SCALE) for name in HD224_BWD if name != "mha_carried")])
+def test_cuda_flash_carry_head_dim224_grads(cuda, shape, scale):
+    """The backward at head_dim 224 through ``_FlashCarry`` (bf16 q and
+    K/V on the tensor-core body, fp32 on the CUDA-core body): one launch,
+    bit-identical twice, within the bounds of
     ``test_cuda_flash_carry_grads_at_training_hop`` of the closed-form
     twin at the same scale (bf16 gradients 2^-7 of the largest, the state
-    gradients 1e-5 of max(1, the largest))."""
+    gradients 1e-5 and fp32 q/K/V gradients 1e-4 of max(1, the
+    largest))."""
+    rows, s_l, t, h, kvh, hop, window, state, dt = HD224_BWD[shape]
     g = torch.Generator(device=cuda).manual_seed(5)
-    n, rows, s_l, h, kvh, hd = 4, 4, 128, 8, 8, 224
-    pe = torch.arange(n, device=cuda)
-    bf = torch.bfloat16
-    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(bf)
-    k = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
-    v = torch.randn(rows, s_l, kvh, hd, generator=g, device=cuda).to(bf)
-    m = torch.randn(rows, h, s_l, generator=g, device=cuda)
-    m[::3] = -1e30
-    l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
-    acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
-    ints = (pe * s_l, (pe - 1) % n * s_l,
+    n, hd = 4, 224
+    pe = torch.arange(n, device=cuda).repeat_interleave(rows // n)
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q = torch.randn(rows, s_l, h, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(rows, t, kvh, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(rows, t, kvh, hd, generator=g, device=cuda).to(dtype)
+    if state == "zero":
+        m = torch.full((rows, h, s_l), -1e30, device=cuda)
+        l = torch.zeros(rows, h, s_l, device=cuda)
+        acc = torch.zeros(rows, h, s_l, hd, device=cuda)
+    else:
+        m = torch.randn(rows, h, s_l, generator=g, device=cuda)
+        m[::3] = -1e30
+        l = torch.rand(rows, h, s_l, generator=g, device=cuda) + 1
+        acc = torch.randn(rows, h, s_l, hd, generator=g, device=cuda)
+    ints = (pe * s_l, (pe - hop) % n * s_l,
             torch.full((rows,), 2 ** 30, device=cuda), None)
     ins = (q, k, v, m, l, acc)
     diff = [x.clone().requires_grad_(True) for x in ins]
-    outs = fk._FlashCarry.apply(*diff, *ints, True, 0, False, None, scale)
+    outs = fk._FlashCarry.apply(*diff, *ints, True, window, False, None,
+                                scale)
     ups = [torch.randn(x.shape, generator=g, device=cuda) for x in outs]
     before = fk.FLASH_CARRY_BWD.launches
     got = torch.autograd.grad(outs, diff, ups, retain_graph=True)
@@ -1418,11 +1448,33 @@ def test_cuda_flash_carry_head_dim224_grads(cuda, scale):
     again = torch.autograd.grad(outs, diff, ups)
     want = fk.flash_carry_backward_plain(
         *ins, *ints, *(o.detach() for o in outs), *ups, causal=True,
-        scale=scale)
+        window=window, scale=scale)
     torch.cuda.synchronize()
     for i, (x, y, z) in enumerate(zip(got, want, again)):
         assert bool(torch.isfinite(x).all())
         assert torch.equal(x, z), f"gradient {i} differs between calls"
         big = float(y.float().abs().max())
-        tol = 2 ** -7 * big if x.dtype == bf else 1e-5 * max(1.0, big)
+        if x.dtype == torch.bfloat16:
+            tol = 2 ** -7 * big
+        else:
+            tol = (1e-5 if i >= 3 else 1e-4) * max(1.0, big)
         torch.testing.assert_close(x.float(), y.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_carry_bwd_body_at_head_dim224(cuda):
+    """The library's choice of body at head_dim 224: the tensor-core body
+    for bf16 q and K/V with more than one query, the CUDA-core body for
+    fp32 operands and for one query; pass B's resident blocks at 224 as the
+    card reports them, at least one block (two warpgroups) an SM."""
+    lib = fk.FLASH_CARRY_BWD.lib()
+    assert lib.flash_carry_bwd_uses_mma(1, 1, 2, 224) == 1
+    assert lib.flash_carry_bwd_uses_mma(1, 1, 512, 224) == 1
+    assert lib.flash_carry_bwd_uses_mma(0, 0, 512, 224) == 0
+    assert lib.flash_carry_bwd_uses_mma(1, 1, 1, 224) == 0
+    assert lib.flash_carry_bwd_uses_mma(1, 1, 512, 192) == 0
+    out = ctypes.c_int(0)
+    fk.FLASH_CARRY_BWD.check(lib.flash_carry_bwd_keys_resident(
+        224, ctypes.byref(out)))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert out.value >= sms

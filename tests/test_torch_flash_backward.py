@@ -282,8 +282,8 @@ def test_backward_work_counts_twelve_d_a_pair():
 # pass B's split plan of the tensor-core backward (``backward_nsplit``,
 # ``backward_shares``): pure functions of the shapes and ``start``. An H100
 # holds 132 SMs; pass B's blocks an SM as the card's occupancy reports
-# them at head_dim 64 and 128.
-H100_RESIDENT = {64: 132 * 3, 128: 132 * 2}
+# them at head_dim 64, 128 and 224 (one block of two warpgroups an SM).
+H100_RESIDENT = {64: 132 * 3, 128: 132 * 2, 224: 132}
 # (B', Bk, T, Kv, flattened query rows a (row, KV head), head_dim): hop 1
 # of each family's training step, as phase 2 of chip_smoke.py runs them
 TRAIN_HOPS = {
@@ -292,6 +292,7 @@ TRAIN_HOPS = {
     "internvl2": (8, 8, 1024, 2, 7 * 1024, 64),
     "mixtral": (4, 4, 512, 8, 6 * 512, 128),
     "whisper": (32, 32, 224, 6, 224, 64),
+    "zamba2_7b": (32, 32, 512, 32, 512, 224),
 }
 
 
@@ -309,7 +310,7 @@ def test_backward_nsplit_fills_the_card_only_where_needed(hop):
     base = bk * kvh * -(-t // 64)
     cap = min(16, bp * -(-rows // 64) // (bk * fk.BWD_SHARE_ITEMS))
     assert 1 <= n <= max(1, cap)
-    if hop in ("qwen3", "zamba2", "whisper"):
+    if hop in ("qwen3", "zamba2", "whisper", "zamba2_7b"):
         assert n == 1
     if hop in ("internvl2", "mixtral"):
         assert n > 1 and base * n >= 1000
@@ -318,6 +319,31 @@ def test_backward_nsplit_fills_the_card_only_where_needed(hop):
     else:                       # two waves at least, or as many as allowed
         assert base * n >= 2 * resident or n == cap
     assert fk.backward_nsplit(bp, 0, t, kvh, rows, resident) == 1
+
+
+def test_backward_nsplit_takes_no_split_at_the_zamba2_7b_hop():
+    """The zamba2-7b.train cell's hop (Bk 32, Kv 32, T 512, MHA): pass B's
+    8,192 blocks fill two waves of any card that holds up to 4,096 of them
+    at once, so no resident count up to that splits it."""
+    bp, bk, t, kvh, rows, _ = TRAIN_HOPS["zamba2_7b"]
+    assert bk * kvh * -(-t // 64) == 8192
+    assert {fk.backward_nsplit(bp, bk, t, kvh, rows, resident)
+            for resident in range(4097)} == {1}
+
+
+@pytest.mark.parametrize("d, lanes", [(64, 16), (128, 32), (224, 8)])
+def test_backward_prep_lanes_divide_a_warp(d, lanes):
+    """The prep pass's lanes a row: D/4 at 64 and 128 (a float4 each), 8
+    at 224 (seven float4 each; 56 would not divide a warp); a row's lanes
+    cover its D columns in whole float4s, and ``backward_blocks`` counts
+    256 // lanes rows a block."""
+    assert fk.prep_lanes(d) == lanes
+    assert 32 % lanes == 0 and (d // 4) % lanes == 0
+    q = torch.empty(32, 512, 32, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(32, 512, 32, d, dtype=torch.bfloat16, device="meta")
+    blocks = fk.backward_blocks(q, k, 1)
+    assert blocks["prep"] == -(-32 * 32 * 512 // (256 // lanes))
+    assert blocks["keys"] == 8 * 32 * 32 and "sum" not in blocks
 
 
 @pytest.mark.parametrize("nsplit", [1, 2, 3, 7, 16])
@@ -375,3 +401,57 @@ def test_backward_work_keeps_the_earlier_bound(hop, want):
                                           pairs=int(mask.sum()))
     assert (flops, moved, kind) == want[:3]
     assert hw.bound_ms(moved, flops, kind) == want[3:]
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("moved", [False, True, "far"])
+def test_near_tie_route_follows_the_kernel_only_at_near_ties(moved):
+    """``chip_smoke.near_tie_route``: at a row whose two largest scores lie
+    within 2^-16 of each other, a backward that sends the max route to the
+    other key is held to the twin rerouted alike (and passes); one that
+    keeps the twin's route is held to the twin; a route moved at a row
+    without a near tie is not rerouted, and fails ``bwd_errors``."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(3)
+    b, sq, h, t, d = 1, 4, 2, 8, 16
+    q = torch.randn(b, sq, h, d, generator=g)
+    k = torch.randn(b, t, h, d, generator=g)
+    v = torch.randn(b, t, h, d, generator=g)
+    row = 2 if moved != "far" else 1          # the query, head 0
+    q[0, row, 0] = 3 * k[0, 5, 0] / k[0, 5, 0].norm()
+    k[0, 3, 0] = k[0, 5, 0] * (1 + 2 ** -20)  # scores 2^-20 apart
+    if moved == "far":                        # no near tie anywhere
+        k[0, 3, 0] = k[0, 5, 0] * 0.5
+    m = torch.full((b, h, sq), -3.0)
+    l = torch.ones(b, h, sq)
+    acc = torch.randn(b, h, sq, d, generator=g)
+    ints = (torch.tensor([0]), torch.tensor([0]), torch.tensor([t]), None)
+    opts = dict(causal=False, window=0)
+    args = (q, k, v, m, l, acc, *ints)
+    outs = fk.flash_carry_plain(*args, **opts)
+    ups = [torch.randn(x.shape, generator=g) for x in outs]
+    want = fk.flash_carry_backward_plain(*args, *outs, *ups, **opts)
+    got = [x.clone() for x in want]
+    scale = fk.softmax_scale(d)
+    s = k[0, :, 0] @ q[0, row, 0] * scale
+    top, other = int(s.argmax()), 3 if int(s.argmax()) == 5 else 5
+    if moved:
+        r = ups[0] - ups[1] * outs[1] - (ups[2] * outs[2]).sum(-1)
+        w = float(r[0, 0, row])                  # the block max beats m
+        got[0][0, row, 0] += w * scale * (k[0, other, 0] - k[0, top, 0])
+        got[1][0, other, 0] += w * scale * q[0, row, 0]
+        got[1][0, top, 0] -= w * scale * q[0, row, 0]
+    ins = (*args[:6], *ints)
+    fixed, n = cs.near_tie_route(torch, fk, ins, outs, ups, opts, got, want)
+    assert n == (1 if moved is True else 0)
+    _, _, ok = cs.bwd_errors(torch, got, fixed)
+    assert ok == (moved != "far")

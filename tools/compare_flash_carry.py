@@ -14,10 +14,12 @@ and the output), the largest difference, and each one's device time under
 
 With ``--backward``, ``OTHER.cu`` is a ``flash_carry_bwd.cu`` and the two
 run at every case of phase 2's ``BWD_CASES``: per case, each one's largest
-error against the closed-form twin (``flash_carry_backward_plain``) beside
+error against the closed-form twin (``flash_carry_backward_plain``; at
+near-tied rows with the max route each one took, ``near_tie_route``) beside
 its bound (the largest of error / bound over the six gradients), whether
-both are within it, and each one's device time in the order other, this,
-this, other. A source without pass B's split (the first form, whose C entry
+both are within it, whether the two give the same bits (the six
+gradients), and each one's device time in the order other, this, this,
+other. A source without pass B's split (the first form, whose C entry
 takes no split arguments) runs unsplit.
 
 ``--out`` also writes the lines to FILE. Needs one CUDA GPU and ``nvcc``;
@@ -115,11 +117,15 @@ def _backward(torch, fk, other_src, dev):
             rec = {"case": name, "q": list(args[0].shape),
                    "k": list(args[1].shape)}
             ms = {"this": [], "other": []}
+            got = {}
             for which in ("other", "this", "this", "other"):
                 this._lib = libs[which]
                 fk._RESIDENT.clear()               # each library's own plan
                 if which not in rec:
-                    errs, tols, ok = cs.bwd_errors(torch, call(), want)
+                    got[which] = call()
+                    held, _ = cs.near_tie_route(torch, fk, args, outs, ups,
+                                                opts, got[which], want)
+                    errs, tols, ok = cs.bwd_errors(torch, got[which], held)
                     rec[which] = {
                         "max_abs_err": max(errs),
                         "of_bound": max(e / t if t else float(e > 0)
@@ -128,10 +134,12 @@ def _backward(torch, fk, other_src, dev):
                             args[0], args[1])}
                 ms[which].append(cs.time_ms(
                     call, iters=10, only="flash_carry_bwd_kernel"))
+            rec["same_bits"] = all(torch.equal(x, y) for x, y in
+                                   zip(got["this"], got["other"]))
             rec["ms"], rec["other_ms"] = ms["this"], ms["other"]
             cs.log(json.dumps(rec))
             lines.append(rec)
-            del outs, ups, want
+            del outs, ups, want, got
     finally:
         this._lib = libs["this"]
         fk._RESIDENT.clear()
